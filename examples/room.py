@@ -282,8 +282,8 @@ def render_walk_parallel(scene: str, rooms: int, poses, outdir,
                          seed: int = 7):
     """Render+save a pose list with a spawn-based process pool.
 
-    spawn (not fork): the caller usually holds a live TPU client, which a
-    forked child must never inherit (only one process may touch the chip).
+    spawn (not fork): the caller usually holds a live device client, which
+    a forked child must never inherit (one process per device).
     """
     import multiprocessing as mp
     from concurrent.futures import ProcessPoolExecutor

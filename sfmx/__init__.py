@@ -1,11 +1,11 @@
-"""sfmx — TPU-native Structure-from-Motion mapping & visual localization.
+"""sfmx — Structure-from-Motion mapping & visual localization in JAX.
 
 A ground-up re-design of the capability surface of hulop/SfMLocalization
 (OpenMVG/OpenCV/Ceres CPU pipeline) as an arrays-and-meshes JAX/Pallas
 framework:
 
 - ``sfmx.core``     — SE(3)/SO(3), camera models, masking utilities (L0)
-- ``sfmx.kernels``  — Pallas TPU kernels + jnp reference impls (L1)
+- ``sfmx.kernels``  — feature/matching ops, the GPU top-2 kernel + plain references (L1)
 - ``sfmx.solvers``  — triangulation, PnP, RANSAC, epipolar, Umeyama, LM/Schur/PCG (L2)
 - ``sfmx.recon``    — tracks, two-view init, incremental SfM engine (L3)
 - ``sfmx.mapstore`` — columnar scene/map format, save/load, partitioning (C7)
@@ -23,12 +23,12 @@ __version__ = "0.1.0"
 
 import jax as _jax
 
-# Geometry is precision-critical: TPU matmuls default to bf16 MXU passes,
-# which injects ~4e-3 relative noise into 3x3 pose algebra, projection,
-# Schur assembly, and PCG — enough to stall BA an order of magnitude above
-# its achievable floor (measured; SURVEY §7.4).  Default the whole library
+# Geometry is precision-critical: by default an f32 matmul on the H100 may
+# run in TF32 (~3 decimal digits), which injects ~1e-3 relative noise into
+# 3x3 pose algebra, projection, Schur assembly, and PCG — enough to stall BA
+# far above its achievable floor (SURVEY §7.4).  Default the whole library
 # to full-f32 matmuls; the few throughput-bound GEMMs (descriptor matching,
-# retrieval) opt back in to bf16 explicitly at their call sites.
+# retrieval) opt in to bf16 explicitly at their call sites.
 _jax.config.update("jax_default_matmul_precision", "highest")
 
 # Debug mode (SURVEY §5.2): SFMX_DEBUG=1 traps NaNs at the producing op and

@@ -20,10 +20,7 @@ class FeatureConfig:
     sigma_levels: tuple = (2, 3, 4, 5, 6)
     oriented: bool = False    # upright default (gravity-aligned indoor rigs)
     n_octaves: int = 2        # 2x-downsampled octaves; >1 widens the scale
-    #                           band (reference AKAZE spans 4 octaves).
-    #                           2 measured +22% extraction cost on-chip
-    #                           (bench_scripts/octave_cost.py) and is the
-    #                           production default per the <30% rule; far
+    #                           band (reference AKAZE spans 4 octaves); far
     #                           queries at 2.7x map scale need 3
     #                           (tests/test_multioctave_e2e.py)
 
@@ -40,8 +37,6 @@ class MatchConfig:
     gv_hypotheses: int = 256        # RANSAC hypotheses per pair
     gv_min_inliers: int = 16        # drop pairs with fewer geometric inliers
     binary: bool = False            # Hamming on M-LDB bits instead of GEMM
-    # float-matching kernel: auto (pallas on TPU) | pallas | dense
-    kernel: str = "auto"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,7 +52,7 @@ class LocalizeConfig:
     # PnP minimal solver: "dlt6" (6-pt DLT) or "p3p" (Grunert 3-pt, 4
     # candidates/sample — survives low inlier ratios; solvers/p3p.py)
     pnp_solver: str = "dlt6"
-    # full-pool Pallas streaming matching (no retrieval gather, no m_cap):
+    # full-pool streaming matching (no retrieval gather, no m_cap):
     # "auto" switches on when the map exceeds streaming_min_landmarks
     # (float descriptors only; binary maps keep the gather path)
     streaming: str = "auto"     # off | on | auto

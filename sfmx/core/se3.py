@@ -197,7 +197,7 @@ def project_to_so3_fast(M: jax.Array, iters: int = 5) -> jax.Array:
     X <- (g X + (g X)^-T) / 2 with determinant scaling g = |det X|^(-1/3);
     quadratic convergence, all mul/adds (adjugate 3x3 inverse) — orders of
     magnitude faster than `jnp.linalg.svd` when vmapped over thousands of
-    RANSAC hypotheses on TPU.  Needs det(M) != 0; reflections (det<0) are
+    RANSAC hypotheses.  Needs det(M) != 0; reflections (det<0) are
     flipped first so the result has det=+1, matching project_to_so3 for
     inputs that are near a (scaled) rotation — exactly the RANSAC case.
     Degenerate inputs yield a finite garbage rotation that scores no inliers.

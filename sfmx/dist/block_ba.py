@@ -20,7 +20,7 @@ layout), and per-iteration communication is O(Hcap):
   line search:    1 all_gather (Hcap,3) + scalar psums
 
 The block algebra is the PLANES formulation (solvers.schur planes pipeline:
-2D arrays with the big axis on lanes — no TPU tile inflation); camera-side
+2D arrays with the big axis leading); camera-side
 reductions are fully device-local because observations live with their
 camera's block.  ``ring_reduce_scatter`` (dist.halo) moves 1/n-sized chunks
 per hop — the ring-attention-style bandwidth-optimal accumulation.

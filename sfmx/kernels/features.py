@@ -4,11 +4,11 @@ Capability parity: the reference's AKAZE path (cv::AKAZE::detectAndCompute —
 FED nonlinear diffusion, Hessian-determinant extrema, M-LDB binary
 descriptors; SURVEY.md C2, §3.1 hot loop 1).
 
-TPU design decisions (not a translation of the OpenCV kernel):
+Design decisions (not a translation of the OpenCV kernel):
   * Full-resolution scale space (KAZE-style) instead of octave pyramids —
     every level is the same static shape, so the whole stack is one batched
-    conv program with no resolution bookkeeping; HBM traffic is the cost,
-    MXU/VPU-friendly static shapes are the payoff.
+    program with no resolution bookkeeping; memory traffic is the cost,
+    static shapes that XLA fuses are the payoff.
   * Perona-Malik g2 diffusion with a precomputed (host-side, static) FED
     step schedule — the evolution is a `lax.scan` over fused 3x3 convs.
   * Detection = 3x3x3 (space x scale) NMS + global masked top-K: every image
@@ -17,7 +17,7 @@ TPU design decisions (not a translation of the OpenCV kernel):
   * Descriptors: rotated, scale-adapted grid samples of (L, Lx, Ly) ->
     channel-wise pairwise comparisons (M-LDB analog) packed into uint32
     words for Hamming matching, plus an L2-normalized float variant that
-    rides the MXU GEMM matcher.
+    rides the GEMM matcher.
 """
 from __future__ import annotations
 
@@ -88,8 +88,7 @@ def _sh(x: jax.Array, dy: int, dx: int) -> jax.Array:
 def scharr_roll(x: jax.Array, dilation: int = 1):
     """Roll-based Scharr derivatives (periodic boundary).
 
-    Same 3x3/32 stencil as `scharr` but with WRAP instead of zero padding —
-    the semantics the fused Pallas diffusion/response kernel implements
+    Same 3x3/32 stencil as `scharr` but with WRAP instead of zero padding
     (wrap contamination touches only a <=dilation border, inside `detect`'s
     border mask).  Works for any rank >= 2.
     """
@@ -133,8 +132,8 @@ def _diffusion_step(L: jax.Array, k2: jax.Array, tau: jax.Array) -> jax.Array:
     """One explicit diffusion step with conductivity from current gradients.
 
     Uses the standard half-point-conductivity discretization on the 4-neighbor
-    stencil (same scheme family as the reference's FED solver).  Periodic
-    (roll) boundaries to match the fused Pallas kernel exactly.
+    stencil (same scheme family as the reference's FED solver), with
+    periodic (roll) boundaries.
     """
     Lx, Ly = scharr_roll(L)
     g = _pm_g2(Lx * Lx + Ly * Ly, k2)
@@ -293,8 +292,8 @@ def detect(levels: jax.Array, resp: jax.Array, cfg: ScaleSpaceConfig, *,
     is_max &= bmask[None, None]
 
     masked = jnp.where(is_max, resp, -jnp.inf)
-    # Hierarchical top-K: global top_k over the full (L*H*W) response costs
-    # ~40 ms/batch16 on TPU.  NMS + the radius-3 suppression below guarantee
+    # Hierarchical top-K instead of one top_k over the full (L*H*W)
+    # response: NMS + the radius-3 suppression below guarantee
     # at most one *surviving* keypoint per (L,2,2) block (any two candidates
     # inside a block are <3 px apart, so the weaker one dies either way), so
     # max-reduce blocks first (20x smaller top_k), then recover the exact
@@ -467,7 +466,7 @@ def describe(levels: jax.Array, kp: Keypoints):
         vals = _bilinear(img, pts[:, 0], pts[:, 1]).reshape(_PATCH, _PATCH)
         # Gradients in the rotated frame == finite differences along the
         # sampled patch's own axes (the grid IS the rotated frame), so no
-        # extra bilinear passes — gathers are the TPU cost here (5x fewer).
+        # extra bilinear passes (5x fewer gathers).
         # Constant scale factor is irrelevant: groups are standardized below.
         dxr = jnp.gradient(vals, axis=1)
         dyr = jnp.gradient(vals, axis=0)
@@ -485,45 +484,97 @@ def describe(levels: jax.Array, kp: Keypoints):
         jax.vmap(one_kp, in_axes=(None, 0, 0, 0, 0))
     )(levels, kp.uv, kp.level, kp.sigma, kp.angle)  # (B,K,87)
 
-    # Float descriptor: per-(grid,channel)-group standardization (subtract the
-    # group mean, unit-normalize the group) before the global L2 norm.  Raw
-    # cell values share a large common-mode component (every keypoint has a
-    # bright/dark center), which otherwise dominates the inner product and
-    # makes impostors score higher than true matches.
+    return finalize_float(feats, kp.mask), finalize_bits(feats, kp.mask)
+
+
+def finalize_float(raw: jax.Array, mask: jax.Array) -> jax.Array:
+    """Float descriptor from raw cell features (B,K,>=87): per-(grid,channel)
+    group standardization (subtract the group mean, unit-normalize the
+    group) before the global L2 norm.  Raw cell values share a large
+    common-mode component (every keypoint has a bright/dark center), which
+    otherwise dominates the inner product and makes impostors score higher
+    than true matches."""
     groups = []
     off = 0
     for gdim in _GRIDS:
         n = gdim * gdim
         for _ch in range(3):
-            v = feats[..., off:off + n]
+            v = raw[..., off:off + n]
             off += n
             v = v - jnp.mean(v, axis=-1, keepdims=True)
             v = v / jnp.maximum(jnp.linalg.norm(v, axis=-1, keepdims=True), 1e-8)
             groups.append(v)
     f = jnp.concatenate(groups, axis=-1)
     f = f / jnp.maximum(jnp.linalg.norm(f, axis=-1, keepdims=True), 1e-8)
-    pad = N_FLOAT_DIM - f.shape[-1]
-    desc_float = jnp.pad(f, ((0, 0), (0, 0), (0, pad)))
-    desc_float = jnp.where(kp.mask[..., None], desc_float, 0.0)
+    f = jnp.pad(f, ((0, 0), (0, 0), (0, N_FLOAT_DIM - f.shape[-1])))
+    return jnp.where(mask[..., None], f, 0.0)
 
-    # Binary descriptor: pairwise comparisons within each grid+channel group.
+
+def finalize_bits(raw: jax.Array, mask: jax.Array) -> jax.Array:
+    """Binary M-LDB descriptor from raw cell features: pairwise comparisons
+    within each grid+channel group, packed (B,K,N_WORDS) uint32."""
     bits = []
     off = 0
     for gdim in _GRIDS:
         n = gdim * gdim
         for _ch in range(3):
-            v = feats[..., off:off + n]
+            v = raw[..., off:off + n]
             off += n
             iu, ju = np.triu_indices(n, k=1)
             bits.append(v[..., iu] > v[..., ju])
-    bits = jnp.concatenate(bits, axis=-1)  # (B,K,486) bool
-    pad_bits = N_WORDS * 32 - bits.shape[-1]
-    bits = jnp.pad(bits, ((0, 0), (0, 0), (0, pad_bits)))
-    w = bits.reshape(*bits.shape[:-1], N_WORDS, 32).astype(jnp.uint32)
+    b = jnp.concatenate(bits, axis=-1)  # (B,K,486) bool
+    b = jnp.pad(b, ((0, 0), (0, 0), (0, N_WORDS * 32 - b.shape[-1])))
+    w = b.reshape(*b.shape[:-1], N_WORDS, 32).astype(jnp.uint32)
     shifts = jnp.arange(32, dtype=jnp.uint32)
-    desc_bits = jnp.sum(w << shifts, axis=-1).astype(jnp.uint32)
-    desc_bits = jnp.where(kp.mask[..., None], desc_bits, 0)
-    return desc_float, desc_bits
+    packed = jnp.sum(w << shifts, axis=-1).astype(jnp.uint32)
+    return jnp.where(mask[..., None], packed, 0)
+
+
+# The upright sampler sees the scale space zero-extended to at least
+# _UPRIGHT_PAD rows and columns (rows to a multiple of 8, columns to a
+# multiple of 128): samples past the bottom/right edge read zeros, samples
+# past the top/left edge clamp.  Kept as the descriptor's definition so maps
+# and queries stay compatible.
+_UPRIGHT_PAD = 256
+
+
+def _cells_from_patch(patch: jax.Array) -> jax.Array:
+    """(PATCH,PATCH) -> (87,) cell features [mean,dx,dy per grid]."""
+    # in-patch gradients (axis-aligned == upright frame)
+    dx = jnp.gradient(patch, axis=1)
+    dy = jnp.gradient(patch, axis=0)
+    outs = []
+    for g in _GRIDS:
+        cs = _PATCH // g
+        for ch in (patch, dx, dy):
+            outs.append(ch[: g * cs, : g * cs].reshape(g, cs, g, cs)
+                        .mean(axis=(1, 3)).ravel())
+    # layout must match describe: per grid, [mean, dx, dy]
+    return jnp.concatenate(outs)
+
+
+def describe_upright(levels: jax.Array, uv: jax.Array, level: jax.Array,
+                     sigma: jax.Array, mask: jax.Array) -> jax.Array:
+    """Raw upright cell features (B,K,87) for all keypoints of a batch: an
+    axis-aligned PATCH x PATCH bilinear resample spanning 20 sigma, then
+    2x2/3x3/4x4 cell means of (value, dx, dy).  Finish with
+    ``finalize_float`` / ``finalize_bits``."""
+    B, L, H, W = levels.shape
+    Hp = max(((H + 7) // 8) * 8, _UPRIGHT_PAD)
+    Wp = max(((W + 127) // 128) * 128, _UPRIGHT_PAD)
+    if (Hp, Wp) != (H, W):
+        levels = jnp.pad(levels, ((0, 0), (0, 0), (0, Hp - H), (0, Wp - W)))
+    spacing = 20.0 * sigma / (_PATCH - 1)     # span 20 sigma over PATCH samples
+    k = jnp.arange(_PATCH, dtype=jnp.float32) - (_PATCH - 1) / 2.0
+
+    def one(lv, uv1, lvl1, sp1):
+        gx, gy = jnp.meshgrid(uv1[0] + k * sp1, uv1[1] + k * sp1)
+        patch = _bilinear(lv[lvl1], gx.ravel(), gy.ravel())
+        return _cells_from_patch(patch.reshape(_PATCH, _PATCH))
+
+    feats = jax.vmap(jax.vmap(one, in_axes=(None, 0, 0, 0)))(
+        levels, uv, level, spacing)
+    return jnp.where(mask[..., None], feats, 0.0)
 
 
 class Features(NamedTuple):
@@ -535,28 +586,17 @@ class Features(NamedTuple):
 def _extract_octave(images: jax.Array, cfg: ScaleSpaceConfig,
                     max_keypoints: int, threshold: float,
                     oriented: bool) -> Features:
-    """Single-octave extraction (the round-1/3 pipeline, unchanged)."""
-    if jax.default_backend() == "tpu":
-        from . import pallas_scale_space as pss
-
-        levels, resp = pss.build_scale_space_and_response(images, cfg)
-    else:
-        levels = build_scale_space(images, cfg)
-        resp = hessian_response(levels, cfg)
+    """Single-octave extraction: scale space, detection, description."""
+    levels = build_scale_space(images, cfg)
+    resp = hessian_response(levels, cfg)
     kp = detect(levels, resp, cfg, max_keypoints=max_keypoints,
                 threshold=threshold, with_orientation=oriented)
     if oriented:
         desc_float, desc_bits = describe(levels, kp)
     else:
-        from . import pallas_describe as pd
-
-        on_tpu = jax.default_backend() == "tpu"
-        if on_tpu:
-            raw = pd.describe_upright(levels, kp.uv, kp.level, kp.sigma, kp.mask)
-        else:
-            raw = pd.describe_upright_reference(levels, kp.uv, kp.level, kp.sigma, kp.mask)
-        desc_float = pd.finalize_float(raw, kp.mask)
-        desc_bits = pd.finalize_bits(raw, kp.mask)
+        raw = describe_upright(levels, kp.uv, kp.level, kp.sigma, kp.mask)
+        desc_float = finalize_float(raw, kp.mask)
+        desc_bits = finalize_bits(raw, kp.mask)
     return Features(kp=kp, desc=desc_float, desc_bits=desc_bits)
 
 
@@ -576,9 +616,8 @@ def detect_and_describe(images: jax.Array, cfg: ScaleSpaceConfig = ScaleSpaceCon
                         n_octaves: int = 1) -> Features:
     """Full extraction: (B,H,W) f32 in [0,1] -> Features with static K capacity.
 
-    oriented=False (default): upright descriptors via the Pallas window-DMA +
-    MXU-resample kernel on TPU (pure-jnp oracle elsewhere) — the right mode
-    for gravity-aligned indoor rigs, and gather-free.
+    oriented=False (default): upright descriptors (``describe_upright``) —
+    the right mode for gravity-aligned indoor rigs.
     oriented=True: rotation-invariant gather path (dominant-orientation +
     rotated patch sampling).
 

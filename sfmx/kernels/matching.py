@@ -3,12 +3,12 @@
 Capability parity: OpenMVG's brute-force matcher with ratio test and the
 pairwise geometric (E/F RANSAC) filter (SURVEY.md C3, §3.1 hot loop 2).
 
-TPU design: a match of image A vs B is one (K,D)x(D,K) MXU GEMM (float
+Design: a match of image A vs B is one (K,D)x(D,K) GEMM (float
 descriptors, cosine similarity == negative squared L2 for unit vectors) or an
 XOR+popcount reduction (binary M-LDB words); top-2 + ratio + mutual-best are
-vectorized masks.  All-pairs matching is a vmap over a static pair list —
-the jnp reference implementation here is the parity oracle for the tiled
-Pallas kernel in ``pallas_match.py``.
+vectorized masks.  ``match_float`` here is the plain reference; the
+production pair matcher (``match_pairs_float_auto``) never holds more than a
+bounded batch of (K, K) similarities (see ``top2.py`` for the kernel).
 """
 from __future__ import annotations
 
@@ -19,6 +19,7 @@ import jax
 import jax.numpy as jnp
 
 from ..core.masking import NEG_INF
+from . import backend
 
 
 class MatchResult(NamedTuple):
@@ -33,18 +34,21 @@ def _top2(sim: jax.Array):
     return v[..., 0], i[..., 0], v[..., 1]
 
 
-def match_similarity(sim: jax.Array, mask_a: jax.Array, mask_b: jax.Array,
-                     ratio: float, cross_check: bool = True) -> MatchResult:
-    """Ratio + mutual-best filtering given a (Ka,Kb) similarity matrix.
-
-    ``ratio`` is applied in distance domain for unit float descriptors:
-    d^2 = 2 - 2 s, accept if d1^2 < ratio^2 * d2^2.
-    """
-    sim = jnp.where(mask_a[:, None] & mask_b[None, :], sim, NEG_INF)
-    s1, i1, s2 = _top2(sim)
+def ratio_accept(s1: jax.Array, s2: jax.Array, ratio: float) -> jax.Array:
+    """Lowe ratio test in the distance domain for unit float descriptors:
+    d^2 = 2 - 2 s, accept if d1^2 < ratio^2 * d2^2 (and a valid best
+    exists)."""
     d1 = jnp.maximum(2.0 - 2.0 * s1, 0.0)
     d2 = jnp.maximum(2.0 - 2.0 * s2, 1e-12)
-    ok = (d1 < ratio * ratio * d2) & (s1 > NEG_INF / 2)
+    return (d1 < ratio * ratio * d2) & (s1 > NEG_INF / 2)
+
+
+def match_similarity(sim: jax.Array, mask_a: jax.Array, mask_b: jax.Array,
+                     ratio: float, cross_check: bool = True) -> MatchResult:
+    """Ratio + mutual-best filtering given a (Ka,Kb) similarity matrix."""
+    sim = jnp.where(mask_a[:, None] & mask_b[None, :], sim, NEG_INF)
+    s1, i1, s2 = _top2(sim)
+    ok = ratio_accept(s1, s2, ratio)
     if cross_check:
         j1 = jnp.argmax(sim, axis=0)  # best A for each B
         ok &= j1[i1] == jnp.arange(sim.shape[0])
@@ -54,10 +58,10 @@ def match_similarity(sim: jax.Array, mask_a: jax.Array, mask_b: jax.Array,
 def match_float(desc_a: jax.Array, desc_b: jax.Array, mask_a: jax.Array,
                 mask_b: jax.Array, *, ratio: float = 0.8,
                 cross_check: bool = True) -> MatchResult:
-    """Brute-force match of unit-norm float descriptors (one MXU GEMM).
+    """Brute-force match of unit-norm float descriptors (one GEMM).
 
     Descriptor similarity tolerates low precision — explicitly run the GEMM
-    in bf16 for full MXU throughput (the library default is highest-precision
+    in bf16 on the tensor cores (the library default is highest-precision
     matmuls for geometry; see sfmx/__init__.py).
     """
     sim = jnp.dot(
@@ -94,6 +98,7 @@ def match_hamming(bits_a: jax.Array, bits_b: jax.Array, mask_a: jax.Array,
 @partial(jax.jit, static_argnames=("ratio", "cross_check"))
 def match_pairs_float(descs: jax.Array, masks: jax.Array, pairs: jax.Array, *,
                       ratio: float = 0.8, cross_check: bool = True) -> MatchResult:
+    """Plain reference: every pair at once, an (Np, K, K) similarity."""
     def one(pair):
         a, b = pair[0], pair[1]
         return match_float(descs[a], descs[b], masks[a], masks[b],
@@ -102,53 +107,58 @@ def match_pairs_float(descs: jax.Array, masks: jax.Array, pairs: jax.Array, *,
     return jax.vmap(one)(pairs)  # fields have leading (Np,) axis
 
 
+# Similarity bytes one batch of the chunked matcher may hold.
+PAIR_BATCH_BYTES = 256 * 1024 * 1024
+
+
+@partial(jax.jit, static_argnames=("ratio", "cross_check", "batch"))
+def match_pairs_float_chunked(descs: jax.Array, masks: jax.Array,
+                              pairs: jax.Array, *, ratio: float = 0.8,
+                              cross_check: bool = True,
+                              batch: int | None = None) -> MatchResult:
+    """``match_pairs_float`` in batches of pairs (``lax.map``): device
+    memory is bounded by ``batch`` (K, K) similarities, whatever Np."""
+    K = descs.shape[1]
+    batch = batch or max(1, PAIR_BATCH_BYTES // (4 * K * K))
+
+    def one(pair):
+        a, b = pair[0], pair[1]
+        return match_float(descs[a], descs[b], masks[a], masks[b],
+                           ratio=ratio, cross_check=cross_check)
+
+    return jax.lax.map(one, pairs, batch_size=min(batch, pairs.shape[0]))
+
+
+@partial(jax.jit, static_argnames=("ratio", "cross_check", "interpret"))
+def match_pairs_float_kernel(descs: jax.Array, masks: jax.Array,
+                             pairs: jax.Array, *, ratio: float = 0.8,
+                             cross_check: bool = True,
+                             interpret: bool = False) -> MatchResult:
+    """Pair matching through the top-2 kernel (``top2.top2_kernel``): no
+    (K, K) similarity exists.  The cross-check is a second kernel call with
+    A and B swapped (best A row for every B row)."""
+    from .top2 import top2_kernel
+
+    s1, i1, s2 = top2_kernel(descs, descs, masks, pairs, interpret=interpret)
+    mask_a = masks[pairs[:, 0]]
+    ok = ratio_accept(s1, s2, ratio) & mask_a
+    if cross_check:
+        _, j1, _ = top2_kernel(descs, descs, masks, pairs[:, ::-1],
+                               interpret=interpret)
+        ok &= (jnp.take_along_axis(j1, i1, axis=1)
+               == jnp.arange(descs.shape[1], dtype=i1.dtype))
+    return MatchResult(idx=i1, valid=ok, score=jnp.where(mask_a, s1, NEG_INF))
+
+
 def match_pairs_float_auto(descs: jax.Array, masks: jax.Array,
                            pairs: jax.Array, *, ratio: float = 0.8,
-                           cross_check: bool = True,
-                           kernel: str = "auto") -> MatchResult:
-    """Backend-dispatched pairwise matching (the production entry).
-
-    kernel="pallas" forces the per-pair VMEM-tile kernel (pallas_pairs.py —
-    one MXU tile per pair, no HBM (Np,K,K) tensor), "tiles" the
-    tile-batched kernel (pallas_tiles.py — descriptor blocks DMA'd once per
-    (A-tile, B-tile) and shared by all pairs inside), "dense" the jnp
-    oracle; "auto" picks pallas on TPU when shapes are tile-aligned.
-
-    The tiled kernel is OPT-IN, not auto: despite moving 8x fewer
-    descriptor bytes per pair, it measures ~83k pairs/s vs the per-pair
-    kernel's ~263k on this chip — its fori_loop pair bodies run ~7 us
-    each where the per-pair kernel's 8-way unrolled bodies run ~2.5 us
-    (Mosaic pipelines unrolled bodies across the MXU/VPU but serializes
-    loop iterations), and unrolling inside the tile blows the 16 MB VMEM
-    stack (measured 30 MB at 64 bodies).  On a backend where loop bodies
-    pipeline, the DMA economics favor tiles; keep both.
-    """
-    K, D = descs.shape[1], descs.shape[2]
-    aligned = K % 8 == 0 and D % 128 == 0
-    # VMEM budget: the fused kernel (pallas_pairs.py) holds G=8 pairs of
-    # (K,D) f32 descriptor buffers + (8,K) mask rows in scratch, plus one
-    # (K,K) f32 similarity tile and its bf16 temporaries.  Bound the
-    # footprint well under the ~16 MB/core VMEM so auto never hands Mosaic
-    # an uncompilable tile (e.g. K=4096 -> 64 MB sim tile).
-    G = 8
-    vmem_bytes = (2 * G * K * D * 4 + 2 * G * 8 * K * 4
-                  + 4 * K * K + 2 * K * K + 4 * K * D)
-    fits_vmem = vmem_bytes <= 12 * 1024 * 1024
-    on_tpu = jax.default_backend() == "tpu"
-    if kernel == "tiles":
-        from .pallas_tiles import match_pairs_float_tiled
-
-        return match_pairs_float_tiled(descs, masks, pairs, ratio=ratio,
-                                       cross_check=cross_check)
-    use_pallas = kernel == "pallas" or (
-        kernel == "auto" and aligned and fits_vmem and on_tpu)
-    if use_pallas:
-        from .pallas_pairs import match_pairs_float_pallas
-
-        return match_pairs_float_pallas(descs, masks, pairs, ratio=ratio,
-                                        cross_check=cross_check)
-    return match_pairs_float(descs, masks, pairs, ratio=ratio,
-                             cross_check=cross_check)
+                           cross_check: bool = True) -> MatchResult:
+    """The production pair matcher: the top-2 kernel on the GPU, the
+    chunked plain matcher on the CPU (``backend``).  Neither allocates in
+    proportion to Np x K x K."""
+    fn = (match_pairs_float_kernel if backend.use_kernels()
+          else match_pairs_float_chunked)
+    return fn(descs, masks, pairs, ratio=ratio, cross_check=cross_check)
 
 
 @partial(jax.jit, static_argnames=("ratio", "cross_check"))
@@ -183,10 +193,9 @@ def geometric_verify_pairs(
     Threshold is squared Sampson error in normalized coords
     (~ (px_thresh/f)^2).
 
-    TPU design (VERDICT r3 item 2 — this was the 222 s wall at 512 frames):
-    all Np*k_hypotheses minimal 8-point systems solve in ONE SVD-free
+    Design: all Np*k_hypotheses minimal 8-point systems solve in ONE SVD-free
     component-wise batch (epipolar.eight_point_batch: unrolled 9x9 Cholesky
-    + inverse iteration, pure VPU), all hypotheses score in one broadcast
+    + inverse iteration, elementwise), all hypotheses score in one broadcast
     Sampson pass, and only the Np WINNERS get a weighted least-squares
     refit over their inliers + essential-structure enforcement (Np tiny
     3x3 SVDs instead of Np*H 8x9 + 3x3 ones) and a final re-score.  The

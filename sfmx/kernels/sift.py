@@ -3,7 +3,7 @@
 Capability parity: the reference supports SIFT as the selectable alternative
 to AKAZE ("SIFT/AKAZE feature extraction", BASELINE.json; OpenMVG's
 ``SIFT_Image_describer``).  This is NOT a port of VLFeat/OpenMVG SIFT — it is
-the same capability rebuilt TPU-first:
+the same capability rebuilt for batched accelerators:
 
   * Gaussian pyramid + difference-of-Gaussians at a FLAT resolution (no
     octave downsampling): every level is a (B,H,W) plane so the whole

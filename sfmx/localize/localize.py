@@ -5,7 +5,7 @@ features → candidate keyframe retrieval (BoW/beacon prefilter) → 2D-3D
 matching against landmark descriptors → solvePnPRansac → pose + inlier
 confidence.
 
-TPU design: the whole query path is ONE jitted function over static
+Design: the whole query path is ONE jitted function over static
 capacities — global-descriptor GEMM retrieval, candidate-landmark gather,
 (K x M) descriptor GEMM with mutual-best + absolute threshold, batched
 PnP-RANSAC, GN refine.  It vmaps over a query batch, which is what the
@@ -255,10 +255,10 @@ def localize_batch(lmap: LocalizationMap, q_desc, q_uv, q_mask, intr, key,
 #
 # The gather path above caps candidates at m_cap and depends on retrieval
 # picking the right keyframes; at map scale (10^5-10^6 landmarks) the dense
-# (K, P) similarity matrix would also blow HBM.  Here the Pallas streaming
-# top-2 kernel (kernels/pallas_match.py) tiles the landmark pool through
-# VMEM — HBM traffic is O(K*D + P*D), the (K, P) matrix never exists — so
-# one kernel call matches a whole query batch against every alive landmark.
+# (K, P) similarity matrix would also fill device memory.  Here the top-2
+# kernel (kernels/top2.py) keeps each similarity tile on chip — traffic is
+# O(K*D + P*D), the (K, P) matrix never exists — so one kernel call matches a
+# whole query batch against every alive landmark.
 # ---------------------------------------------------------------------------
 
 
@@ -319,8 +319,6 @@ def localize_batch_streaming(
     min_inliers: int = 12,
     prior_center: jax.Array | None = None,
     prior_radius: float = 0.0,
-    tile_b: int = 2048,
-    interpret: bool | None = None,
     pnp_solver: str = "dlt6",
 ) -> LocalizeResult:
     """Batch localization against the full landmark pool (no m_cap, no
@@ -333,10 +331,8 @@ def localize_batch_streaming(
     position (the beacon-fusion hook, here applied to points directly
     rather than to retrieved keyframes).
     """
-    from ..kernels.pallas_match import match_float_streaming
+    from ..kernels.top2 import match_float_streaming
 
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
     B, K, D = q_desc.shape
     lm_mask = lmap.lm_alive
     if prior_center is not None:
@@ -344,8 +340,7 @@ def localize_batch_streaming(
         lm_mask = lm_mask & (d2 <= prior_radius * prior_radius)
     m = match_float_streaming(
         q_desc.reshape(B * K, D), lmap.lm_desc,
-        q_mask.reshape(B * K), lm_mask,
-        ratio=ratio, tile_b=tile_b, interpret=interpret)
+        q_mask.reshape(B * K), lm_mask, ratio=ratio)
     idx = m.idx.reshape(B, K)
     corr_ok = (m.valid & (m.score > sim_thresh)).reshape(B, K)
     X3 = lmap.X[idx]                                     # (B,K,3)
@@ -370,7 +365,7 @@ def localize_query_streaming(lmap: LocalizationMap, q_desc, q_uv, q_mask,
 def use_streaming(lc, lmap: LocalizationMap, binary: bool) -> bool:
     """Policy for LocalizeConfig.streaming: off | on | auto (map-size gated).
 
-    Binary maps keep the gather path — the streaming kernel is float/MXU.
+    Binary maps keep the gather path — the streaming matcher is float only.
     """
     if binary or lc.streaming == "off":
         return False

@@ -1,10 +1,10 @@
 """Image retrieval (C8): visual vocabulary + VLAD global descriptors.
 
 Capability parity: the reference restricts query matching to likely map
-keyframes with a BoW-style visual vocabulary (SURVEY C8).  TPU design: a
+keyframes with a BoW-style visual vocabulary (SURVEY C8).  Design: a
 small k-means vocabulary (built once per map, jitted Lloyd iterations) and
 VLAD aggregation — residuals-to-assigned-word sums via one-hot GEMM — give a
-(V*D) global descriptor whose scoring against all keyframes is a single MXU
+(V*D) global descriptor whose scoring against all keyframes is a single
 GEMM.  Much sharper than mean-pooling local descriptors (tested) while
 keeping retrieval one matmul.
 """

@@ -15,9 +15,9 @@ Total comm per batch: O(n_shards * B * K) scalars, independent of pool
 size P.  The PnP-RANSAC tail then runs replicated (it is per-query work on
 K correspondences).
 
-The per-shard matcher is the Pallas streaming top-2 kernel on TPU and its
-jnp oracle elsewhere — same acceptance semantics (Lowe ratio + absolute
-floor) as ``localize_batch_streaming``.
+The per-shard matcher is ``kernels.top2.top2`` (the kernel on the GPU, the
+chunked plain version on the CPU) — same acceptance semantics (Lowe ratio +
+absolute floor) as ``localize_batch_streaming``.
 """
 from __future__ import annotations
 
@@ -65,37 +65,20 @@ def shard_localization_map(lmap: LocalizationMap, mesh: Mesh) -> LocalizationMap
     )
 
 
-def _local_top2(q: jax.Array, pool: jax.Array, interpret: bool):
-    """Per-shard top-2 over the local landmark pool: (BK,) s1, i1, s2."""
-    if interpret:
-        from ..kernels.pallas_match import match_top2_reference
-
-        return match_top2_reference(q, pool)
-    from ..core.masking import round_up
-    from ..kernels.pallas_match import match_top2
-
-    BK, D = q.shape
-    Pl = pool.shape[0]
-    ta, tb = 256, 2048
-    qp = jnp.pad(q, ((0, round_up(max(BK, ta), ta) - BK), (0, 0)))
-    pp = jnp.pad(pool, ((0, round_up(max(Pl, tb), tb) - Pl), (0, 0)))
-    s1, i1, s2 = match_top2(qp, pp, tile_a=ta, tile_b=tb)
-    return s1[:BK], jnp.minimum(i1[:BK], Pl - 1), s2[:BK]
-
-
-@partial(jax.jit, static_argnames=("mesh", "k_hypotheses", "interpret"))
+@partial(jax.jit, static_argnames=("mesh", "k_hypotheses"))
 def _localize_sharded_jit(lmap, q_desc, q_uv, q_mask, intr_b, key, *, mesh,
                           k_hypotheses, px_thresh, ratio, sim_thresh,
-                          min_inliers, interpret):
+                          min_inliers):
+    from ..kernels.top2 import top2
+
     B, K, D = q_desc.shape
-    q = jnp.where(q_mask[..., None], q_desc, 0.0).reshape(B * K, D)
+    q = q_desc.reshape(B * K, D)
 
     def shard_fn(X_l, desc_l, alive_l, q):
         n = jax.lax.axis_size(AXIS)
         d = jax.lax.axis_index(AXIS)
         Pl = desc_l.shape[0]
-        pool = jnp.where(alive_l[:, None], desc_l, 0.0)
-        s1, i1, s2 = _local_top2(q, pool, interpret)
+        s1, i1, s2 = top2(q, desc_l, alive_l)
         # exact global top-2 from per-shard (s1, i1, s2): winner's best is
         # global best; global second = max(winner's second, losers' bests).
         # Expressed with pmax/pmin/psum so every output is statically known
@@ -122,9 +105,9 @@ def _localize_sharded_jit(lmap, q_desc, q_uv, q_mask, intr_b, key, *, mesh,
         out_specs=(P(), P(), P(), P(), P()),
     )(lmap.X, lmap.lm_desc, lmap.lm_alive, q)
 
-    d1 = jnp.maximum(2.0 - 2.0 * s1, 0.0)
-    d2 = jnp.maximum(2.0 - 2.0 * s2, 1e-12)
-    ok = (d1 < ratio * ratio * d2) & (s1 > sim_thresh) & alive
+    from ..kernels.matching import ratio_accept
+
+    ok = ratio_accept(s1, s2, ratio) & (s1 > sim_thresh) & alive
     corr_ok = ok.reshape(B, K) & q_mask
     X3 = X3.reshape(B, K, 3)
 
@@ -149,16 +132,13 @@ def localize_batch_sharded(
     ratio: float = 0.85,
     sim_thresh: float = 0.75,
     min_inliers: int = 12,
-    interpret: bool | None = None,
 ) -> LocalizeResult:
     """Batch localization against a mesh-sharded landmark pool (see module
     docstring).  ``lmap`` must come from :func:`shard_localization_map`."""
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
     B = q_desc.shape[0]
     intr_b = jnp.broadcast_to(jnp.atleast_2d(intr), (B, 7))
     res, _ = _localize_sharded_jit(
         lmap, q_desc, q_uv, q_mask, intr_b, key, mesh=mesh,
         k_hypotheses=k_hypotheses, px_thresh=px_thresh, ratio=ratio,
-        sim_thresh=sim_thresh, min_inliers=min_inliers, interpret=interpret)
+        sim_thresh=sim_thresh, min_inliers=min_inliers)
     return res

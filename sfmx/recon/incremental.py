@@ -5,7 +5,7 @@ Capability parity: OpenMVG's ``SequentialSfM_ReconstructionEngine``
 initialization, sequential PnP resection, track triangulation, periodic
 bundle adjustment, outlier pruning.
 
-TPU design (not a translation):
+Design (not a translation):
   * Landmark id == track id.  The observation table is FIXED at track-build
     time; "growing the map" = flipping alive masks.  Every device step —
     resection RANSAC, triangulate-everything, BA — therefore runs at one
@@ -65,10 +65,6 @@ class ReconConfig:
     # runs in checkpointed chunks and resumes from ckpt after a crash
     final_ba_ckpt: str | None = None
     final_ba_ckpt_every: int = 10
-    # fused dense-layout BA (kernels/segsum.py): "auto" = on TPU once the
-    # obs table is big enough to amortize the layout build + recompiles
-    dense_ba: str = "auto"            # auto | on | off
-    dense_ba_min_obs: int = 20000
     seed: int = 0
 
 
@@ -351,117 +347,6 @@ def reconstruct(
         X_alive[newly] = True
         phase_s["triangulate"] += _time.time() - t0
 
-    dkw_memo: dict = {}
-
-    def dense_ba_kwargs(obs_pt_sel=None, obs_cam_sel=None):
-        """Static bounds for the fused dense-layout BA (pow2-bucketed so a
-        growing map re-jits O(log) times, not per call).
-
-        Long tracks: the fused kernel unrolls the per-point slot loop tp
-        times, so tp is capped at 64 — observations past slot 64 of a
-        track (dense walkthroughs revisiting the same structure) ride the
-        EXACT overflow path (lm.ba_solve ov_cap: narrow planes ops chained
-        into the kernel's bias).  tp is chosen as the smallest pow2 whose
-        overflow stays under 15% of the table, so the dense kernel always
-        carries the bulk of the work; only a mostly-long-track scene
-        (overflow majority even at tp=64) falls back to the planes path.
-        """
-        obs_pt_s = obs_pt if obs_pt_sel is None else obs_pt_sel
-        obs_cam_s = obs_cam if obs_cam_sel is None else obs_cam_sel
-        if cfg.dense_ba == "off" or (cfg.dense_ba == "auto" and (
-                jax.default_backend() != "tpu"
-                or len(obs_pt_s) < cfg.dense_ba_min_obs)):
-            stats["ba_path"] = {"mode": "planes",
-                                "why": ("disabled" if cfg.dense_ba == "off"
-                                        else "cpu-or-small")}
-            return {}
-        from ..kernels import segsum
-
-        lens = np.bincount(obs_pt_s, minlength=T)
-        O = len(obs_pt_s)
-        # Memoize per bucket size: every distinct (bucket, tp, wc, tile)
-        # combination is its OWN XLA program, and letting tp/wc drift call
-        # to call at the same bucket minted ~9x more programs than buckets
-        # — the warm 1024-frame corridor build spent 143 s in BA at 2
-        # LM iters/s, mostly multi-second per-program cache loads, while
-        # the same solve at the final scale runs at 20 iters/s.  Reuse the
-        # bucket's config while it still BOUNDS the data (overflow within
-        # ov_cap, camera window within wc).
-        if O in dkw_memo and dkw_memo[O] is None:
-            # blacklisted: this bucket's dense config failed to compile
-            stats["ba_path"] = {"mode": "planes",
-                                "why": "dense compile failed at this bucket"}
-            return {}
-        memo = dkw_memo.get(O)
-        if memo is not None:
-            ov_m = int(np.maximum(lens - memo["tp_cap"], 0).sum())
-            if ov_m <= memo["ov_cap"] or (ov_m == 0 and memo["ov_cap"] == 0):
-                order_m = np.argsort(obs_pt_s, kind="stable")
-                wc_m = segsum.compute_cam_window(
-                    obs_pt_s[order_m], obs_cam_s[order_m], T, C,
-                    memo["tp_cap"])
-                if wc_m <= memo["cam_window"]:
-                    stats["ba_path"] = {"mode": "dense", "memo": True,
-                                        **{k: memo[k] for k in
-                                           ("tp_cap", "ov_cap", "cam_window",
-                                            "tile_p")}, "obs": O}
-                    return dict(memo)
-        # tp=128 earns its 2x compile-time: on the 1024-frame corridor
-        # (30% overflow at tp=64) the overflow planes-path rows dominated
-        # and dense+ov ran at 6.3 LM iters/s vs planes' 7.9 — tp=128
-        # (8.2% overflow) measured 20.1 iters/s on the same scene/chip.
-        tp = None
-        for cand in (8, 16, 32, 64, 128):
-            if np.maximum(lens - cand, 0).sum() <= 0.15 * O:
-                tp = cand
-                break
-        if tp is None:
-            tp = 128
-            if np.maximum(lens - tp, 0).sum() > 0.5 * O:
-                # overflow-majority scene: planes path wins
-                stats["ba_path"] = {"mode": "planes",
-                                    "why": "overflow-majority at tp=128"}
-                return {}
-        ov = int(np.maximum(lens - tp, 0).sum())
-        ov_cap = 0 if ov == 0 else max(128, 1 << (ov - 1).bit_length())
-        order = np.argsort(obs_pt_s, kind="stable")
-        wc = segsum.compute_cam_window(obs_pt_s[order], obs_cam_s[order],
-                                       T, C, tp)
-        wc = 128 * (1 << max(0, (wc // 128 - 1).bit_length()))
-        # VMEM fit, empirically fenced on this chip's 16 MB scoped limit.
-        # The assembly kernel's footprint is dominated by tp*tile_p (its
-        # (tp*18, tile_p) W output + per-slot temporaries); the matvec adds
-        # a wc*tile_p one-hot/iota term.  Measured OK: (tp,tile_p,wc) =
-        # {32,512,256},{64,256,1024},{128,128,1024}; OOM: {64,512,1024},
-        # {128,256,~512},{256,128,1024}.  Safe region: tp*tile_p <= 16384
-        # AND wc*tile_p <= 262144.
-        # config-4+ scale note: long tracks across distant cameras push wc
-        # to 4096, where no tile fits the fence (tile_p=64 is Mosaic-
-        # infeasible — tile_p is a LANE dim in the cost kernel, min 128)
-        # and BA falls back to planes (measured 1.49 iters/s for 430 s of
-        # the 5k-frame build).  The fix is demoting wide-window points'
-        # observations to the exact overflow chain (it needs no camera
-        # window) so wc stays bounded — a packer change, stated open.
-        tile_p = None
-        for cand_t in (512, 256, 128):
-            if tp * cand_t <= 16384 and wc * cand_t <= 262144:
-                tile_p = cand_t
-                break
-        if tile_p is None:
-            stats["ba_path"] = {"mode": "planes",
-                                "why": f"no VMEM-feasible tile at tp={tp}, "
-                                       f"wc={wc}"}
-            return {}
-        # VERDICT r4 weak item: nothing recorded WHICH BA path real builds
-        # ran — log the chosen layout so BASELINE rows can prove engagement
-        stats["ba_path"] = {"mode": "dense", "tp": tp, "ov_cap": ov_cap,
-                            "cam_window": wc, "tile_p": tile_p, "obs": O,
-                            "overflow_frac": round(ov / max(O, 1), 3)}
-        dkw = dict(tp_cap=tp, dense_cg=True, cam_window=wc, ov_cap=ov_cap,
-                   tile_p=tile_p)
-        dkw_memo[O] = dkw
-        return dict(dkw)
-
     def run_ba(iters, ckpt_path=None, huber_scale=1.0, prune=True):
         nonlocal cam_R, cam_t, X
         t_ba = _time.time()
@@ -470,11 +355,8 @@ def reconstruct(
         if n_alive == 0:
             return
         # BA sees only the ALIVE observations, pow2-bucketed (padding rows
-        # are REAL dead obs at weight 0, so the dense packer sees real
-        # track shapes).  The full table is ~3x the alive set on corridor
-        # builds AND its long never-triangulated chains pushed the overflow
-        # heuristic past 50% (the r4 planes fallback) while the alive
-        # distribution was dense-eligible the whole time.
+        # are real dead obs at weight 0) so a growing map re-jits O(log)
+        # times; the full table is ~3x the alive set on corridor builds.
         bucket = 1 << max(0, (n_alive - 1).bit_length())
         if bucket < O:
             ai = np.flatnonzero(alive)
@@ -493,38 +375,19 @@ def reconstruct(
             jnp.asarray(obs_cam_s), jnp.asarray(obs_pt_s),
             jnp.asarray(obs_uv[sel], jnp.float32),
             jnp.asarray(w), jnp.asarray(fixed))
-        dkw = dense_ba_kwargs(obs_pt_s, obs_cam_s)
+        if ckpt_path is not None:
+            # checkpointed final solve: chunks + resume (SURVEY §5.3)
+            from ..solvers import ba_ckpt
 
-        def _solve(kw):
-            if ckpt_path is not None:
-                # checkpointed final solve: chunks + resume (SURVEY §5.3)
-                from ..solvers import ba_ckpt
-
-                return ba_ckpt.ba_solve_checkpointed(
-                    *ba_args, total_iters=iters,
-                    ckpt_every=cfg.final_ba_ckpt_every, ckpt_path=ckpt_path,
-                    cg_iters=cfg.cg_iters,
-                    huber_px=cfg.huber_px * huber_scale, **kw)[:4]
-            return lm.ba_solve(
+            R2, t2, X2, costs = ba_ckpt.ba_solve_checkpointed(
+                *ba_args, total_iters=iters,
+                ckpt_every=cfg.final_ba_ckpt_every, ckpt_path=ckpt_path,
+                cg_iters=cfg.cg_iters,
+                huber_px=cfg.huber_px * huber_scale)[:4]
+        else:
+            R2, t2, X2, costs = lm.ba_solve(
                 *ba_args, iters=iters, cg_iters=cfg.cg_iters,
-                huber_px=cfg.huber_px * huber_scale, **kw)
-
-        try:
-            R2, t2, X2, costs = _solve(dkw)
-        except Exception as e:
-            if not dkw:
-                raise
-            # fused-path compile failure (the VMEM fence is empirical and
-            # the remote compiler's scoped accounting has slack we cannot
-            # model exactly): fall back to the planes path for this call
-            # and blacklist this bucket's dense config — a build must
-            # degrade, never die, on a fence miss
-            dkw_memo[len(obs_pt_s)] = None
-            stats.setdefault("ba_fallbacks", []).append(
-                {"obs": len(obs_pt_s),
-                 "dkw": {k: v for k, v in dkw.items() if k != "dense_cg"},
-                 "err": str(e)[:200]})
-            R2, t2, X2, costs = _solve({})
+                huber_px=cfg.huber_px * huber_scale)
         # np.array (copy): jax->numpy views are read-only, host state is mutable
         cam_R = np.array(R2)
         cam_t = np.array(t2)

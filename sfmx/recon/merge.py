@@ -4,7 +4,7 @@ Capability parity: the reference's model-merge tool (SURVEY §3.5): match
 common features across session reconstructions, solve the similarity
 transform between them, concatenate, and jointly bundle-adjust.
 
-TPU design: cross-session registration is a landmark-descriptor GEMM +
+Design: cross-session registration is a landmark-descriptor GEMM +
 batched 3-point RANSAC over Umeyama hypotheses (vmapped closed-form solves,
 no iterative alignment); matched landmark pairs are FUSED (one landmark id,
 observations remapped), which is what stitches the sessions together in the

@@ -7,7 +7,7 @@ kept resident.  Feature extraction happens server-side, like the
 reference's native localizer — clients send pixels, not descriptors
 (pre-extracted features remain accepted for feature-level clients).
 
-TPU design: instead of the reference's one-query-at-a-time native-addon
+Design: instead of the reference's one-query-at-a-time native-addon
 call, concurrent requests are micro-batched onto the device — a background
 loop drains the queue every ``batch_window_ms``, and the whole batch
 (extraction for image requests, then vmapped ``localize_query``) runs in a
@@ -130,10 +130,8 @@ class LocalizationService:
 
     def warmup(self, map_id: str, *, max_bucket: int | None = None):
         """Compile every pow2 batch bucket for this map's extraction and
-        localization programs (VERDICT r4 item 6: serving must never pay a
-        mid-traffic compile — the concurrent-burst p95 was measuring the
-        remote-compile service, not the serving path, whenever the timed
-        burst landed in a bucket the warm burst missed).
+        localization programs: serving must never pay a mid-traffic
+        compile.
 
         With the persistent compile cache this is a one-time cost per
         deployment; `sfmx bundle` ships the resulting cache.
@@ -298,7 +296,7 @@ class LocalizationService:
                 lmap, d, u, m, ki, kq, q_bits=bq, **kw)
             res_b = jax.vmap(fn)(q_desc, q_uv, q_mask, intr_b, keys, q_bits)
         elif use_streaming(lc, lmap, binary):
-            # map-scale path: whole batch vs every landmark in ONE streaming
+            # map-scale path: whole batch vs every landmark in ONE top-2
             # kernel call (no retrieval gather, no m_cap truncation)
             res_b = localize_batch_streaming(
                 lmap, q_desc, q_uv, q_mask, intr_b, k,

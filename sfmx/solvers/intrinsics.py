@@ -5,7 +5,7 @@ Capability parity: OpenMVG's ``Bundle_Adjustment_Ceres`` refines intrinsics
 built from EXIF-free images start from a guessed focal (ingest uses
 f = 1.2*max(w,h)) and need this to converge to metric-quality geometry.
 
-TPU design: rather than widening the Schur system with global columns
+Design: rather than widening the Schur system with global columns
 (intrinsics couple every camera sharing them), refinement alternates with
 the pose/point LM: holding geometry fixed, each intrinsics group solves an
 independent <=5x5 GN system assembled with one segment_sum over its

@@ -1,4 +1,4 @@
-"""Small-matrix linear-algebra helpers tuned for batched TPU use."""
+"""Small-matrix linear-algebra helpers tuned for large vmapped batches."""
 from __future__ import annotations
 
 import jax

@@ -2,7 +2,7 @@
 
 Capability parity: Ceres ``Solve`` with Huber loss + Schur elimination as
 driven by OpenMVG's ``Bundle_Adjustment_Ceres`` (reference hot loop,
-SURVEY.md §3.4).  TPU design: the whole LM iteration — residuals, analytic
+SURVEY.md §3.4).  Design: the whole LM iteration — residuals, analytic
 Jacobians (via per-observation ``jacfwd``, vmapped), block assembly,
 Schur reduction, PCG, back-substitution, trust-region accept/reject — is one
 jitted function with static capacities; the outer iteration runs as a
@@ -64,11 +64,9 @@ def _jacobians_planes(intr, k_idx, R, t, X, cam_id, pt_id, uv):
     """Analytic residual + Jacobians in PLANES layout: (O,2), (O,12), (O,6).
 
     Same math as ``_jacobians`` (parity-tested) but every intermediate is an
-    (O,)-wide component array and every output is 2D with the O axis on
-    lanes.  The vmapped-jacfwd version materializes (O,2,6)/(O,2,9) arrays
-    whose two small minor dims tile to (2,128)/(8,128) on TPU — 10-21x
-    physical memory inflation (measured: the Jacobian pipeline dominated
-    the LM fixed cost).  Column order of Jc: [du/d(w,t) (6) | dv/d(w,t) (6)];
+    (O,)-wide component array and every output is 2D with the O axis
+    leading, instead of (O,2,6)/(O,2,9) blocks with two small minor dims.
+    Column order of Jc: [du/d(w,t) (6) | dv/d(w,t) (6)];
     Jp: [du/dX (3) | dv/dX (3)] — consumed by ``schur.assemble_planes``.
     """
     ko = intr[k_idx[cam_id]]                 # (O,7) — 2D, fine
@@ -145,8 +143,7 @@ def _eval_cost(intr, k_idx, R, t, X, cam_id, pt_id, uv, w_valid, delta):
 
 
 @partial(jax.jit, static_argnames=("iters", "cg_iters", "tp_cap", "tc_cap",
-                                   "return_lam", "dense_cg", "cam_window",
-                                   "ov_cap", "tile_p"))
+                                   "return_lam"))
 def ba_solve(
     intr: jax.Array,      # (I,7)
     k_idx: jax.Array,     # (C,) int32
@@ -166,36 +163,23 @@ def ba_solve(
     tp_cap: int | None = None,
     tc_cap: int | None = None,
     return_lam: bool = False,
-    dense_cg: bool = False,
-    cam_window: int | None = None,
-    ov_cap: int = 0,
-    tile_p: int = 512,
 ):
     """Run `iters` LM iterations; returns (R, t, X, costs[iters+1]).
-
-    ov_cap (dense_cg only): static capacity for OVERFLOW observations —
-    per-point slots >= tp_cap of tracks longer than the dense layout.  With
-    ov_cap > 0, tp_cap no longer needs to bound the longest track: the
-    first tp_cap observations of each point ride the fused kernel and the
-    overflow rides exact narrow-side chaining (schur.SchurSystemD.ov_*).
-    MUST be >= sum over points of max(0, track_len - tp_cap) or overflow
-    observations are silently dropped.
 
     return_lam=True appends the final LM damping to the return tuple so a
     chunked/checkpointed caller can resume with the trust region intact.
 
-    dense_cg=True (requires tp_cap) runs the PCG with the point-major
-    dense layout + fused Pallas matvec (kernels/segsum.py) — the fast path
-    on TPU where narrow gather/scatter bandwidth is the planes matvec's
-    bottleneck (BASELINE.md round-3 measurement).
-
     ``huber_px`` is given in pixels and converted to the normalized-residual
     domain with the mean focal length.
+
+    Formulation: without ``tp_cap`` the LM step runs the einsum +
+    sorted-segment-sum formulation (``schur.assemble``/``pcg``); with it,
+    the planes formulation (``schur.assemble_planes``/``pcg_planes``).
 
     tp_cap/tc_cap: static upper bounds on observations per point (track
     length) / per camera.  When given, every segment reduction in the
     Schur/PCG path runs scatter-free via padded per-segment obs tables
-    (``schur.SegmentRows``), the fast path on TPU.  MUST be true bounds —
+    (``schur.SegmentRows``).  MUST be true bounds —
     callers know them (track builder caps track length; a camera has at
     most K feature slots); overflowing observations would be dropped.
     """
@@ -205,104 +189,21 @@ def ba_solve(
     huber_n = huber_px / f_ref
 
     # Sort the obs table by pt_id once: point-side segment reductions in
-    # assembly/PCG then use the sorted-scatter path (52x faster on TPU).
-    # Results are order-invariant (all uses are sums).
+    # assembly/PCG then use the sorted-scatter path.  Results are
+    # order-invariant (all uses are sums).
     perm = jnp.argsort(pt_id)
     cam_id, pt_id, uv, w_valid = (
         cam_id[perm], pt_id[perm], uv[perm], w_valid[perm])
-    # pt_rows/cam_rows feed the planes path only; with dense_cg + ov_cap,
-    # tp_cap may deliberately undershoot the longest track, which would
-    # make build_rows drop observations — skip them on the dense path.
     pt_rows = (schur.build_rows(pt_id, n_pts, tp_cap, ids_sorted=True)
-               if tp_cap and not dense_cg else None)
-    cam_rows = (schur.build_rows(cam_id, n_cams, tc_cap)
-                if tc_cap and not dense_cg else None)
-    ov = None
-    if dense_cg:
-        if not tp_cap:
-            raise ValueError("dense_cg requires tp_cap (track-length bound)")
-        from ..kernels import segsum
-
-        dense = segsum.build_dense_obs(pt_id, cam_id, n_pts, n_cams, tp_cap,
-                                       cam_window=cam_window)
-        # once-per-solve packed per-obs inputs for the fused assembly kernel
-        uvw = segsum.pack_rows(
-            dense, jnp.concatenate([uv, w_valid[:, None]], axis=1))
-        _, fused_interp = schur._dense_flags(None, None)
-        if ov_cap:
-            # overflow sub-table: the obs build_dense_obs dropped (slot >=
-            # tp_cap); a static-size nonzero keeps this jit-safe, pads get
-            # weight 0 and clipped-valid ids
-            O = pt_id.shape[0]
-            start = jnp.searchsorted(pt_id,
-                                     jnp.arange(n_pts, dtype=pt_id.dtype))
-            slot = jnp.arange(O, dtype=jnp.int32) - start[pt_id].astype(
-                jnp.int32)
-            ovsel = jnp.nonzero(slot >= tp_cap, size=ov_cap,
-                                fill_value=O)[0]
-            ovm = (ovsel < O).astype(w_valid.dtype)
-            ovi = jnp.minimum(ovsel, O - 1)
-            ov = (cam_id[ovi], pt_id[ovi], uv[ovi], w_valid[ovi] * ovm)
-    else:
-        dense = None
-
-    if dense is not None:
-        # cost0 through the SAME fused kernel the trial costs use: comparing
-        # _eval_cost against ba_cost_fused (~1e-4 relative apart) can
-        # spuriously reject a genuinely improving first step near
-        # convergence (ADVICE r3).
-        from ..kernels import segsum
-
-        cam19_0 = segsum.build_cam_table(intr, k_idx, R, t)
-        pp0 = dense.camp.shape[1]
-        x8_0 = jnp.zeros((8, pp0), jnp.float32).at[:3, :n_pts].set(X.T)
-        cost0 = segsum.ba_cost_fused(
-            cam19_0, dense.camp, uvw, x8_0, huber_n, tp=dense.camp.shape[0],
-            nc=1, bases=dense.bases, cam_window=cam_window, tile_p=tile_p,
-            interpret=fused_interp)[0]
-        if ov is not None:
-            cost0 = cost0 + _eval_cost(intr, k_idx, R, t, X, ov[0], ov[1],
-                                       ov[2], ov[3], huber_n)
-    else:
-        cost0 = _eval_cost(intr, k_idx, R, t, X, cam_id, pt_id, uv, w_valid,
-                           huber_n)
+               if tp_cap else None)
+    cam_rows = schur.build_rows(cam_id, n_cams, tc_cap) if tc_cap else None
+    cost0 = _eval_cost(intr, k_idx, R, t, X, cam_id, pt_id, uv, w_valid,
+                       huber_n)
     state = BAState(R, t, X, jnp.asarray(init_lambda, X.dtype), cost0)
 
     def lm_iter(state: BAState, _):
         R, t, X = state.R, state.t, state.X
-        # NOTE on strategy selection (measured on the round-1 chip, which
-        # has ~105 GB/s HBM): the einsum+sorted-scatter path below, the
-        # rows-gather path (pt_rows/cam_rows), the track-blocked CG and the
-        # planes pipeline (assemble_planes/pcg_planes) all land within ~10%
-        # of each other at config-3 scale — the chip is gather/scatter
-        # throughput bound either way.  The alternatives are kept (parity
-        # tested) because their relative cost is layout- and
-        # bandwidth-dependent; re-race them on full-bandwidth hardware.
-        if dense is not None:
-            # FUSED path: residuals + Jacobians + normal blocks + Schur
-            # reduction in one Pallas pass over the dense layout — no
-            # (O,k) lane-padded temporaries, no segment scatters, no
-            # per-iteration W re-pack (kernels/segsum.py).
-            ov_blocks, ov_cost = None, None
-            if ov is not None:
-                r_o, Jc_o, Jp_o = _jacobians_planes(intr, k_idx, R, t, X,
-                                                    ov[0], ov[1], ov[2])
-                r2o = jnp.sum(r_o * r_o, axis=-1)
-                w_o = ov[3] * huber_weight(r2o, huber_n)
-                ov_blocks = schur.assemble_planes(
-                    Jc_o, Jp_o, r_o, w_o, ov[0], ov[1], n_cams, n_pts,
-                    pt_sorted=True)
-                ov_cost = robust_cost(r2o, ov[3], huber_n)
-            sysd, _ = schur.reduce_system_fused(
-                intr, k_idx, R, t, X, dense, uvw, state.lam, huber_n,
-                cam_window=cam_window, tile_p=tile_p,
-                ov_blocks=ov_blocks, ov_cost=ov_cost)
-            dx_c, _ = schur.pcg_dense(sysd, iters=cg_iters,
-                                      fixed_cam_mask=fixed_cam_mask,
-                                      cam_window=cam_window, tile_p=tile_p)
-            dx_p = schur.solve_points_dense(
-                sysd, dx_c, cam_window=cam_window, tile_p=tile_p)[:n_pts]
-        elif pt_rows is not None:
+        if pt_rows is not None:
             r, Jc, Jp = _jacobians_planes(intr, k_idx, R, t, X,
                                           cam_id, pt_id, uv)
             r2 = jnp.sum(r * r, axis=-1)
@@ -335,41 +236,13 @@ def ba_solve(
         # only as alpha).
         alphas = jnp.asarray([1.0, 0.5, 0.25, 0.0625], X.dtype)
 
-        if dense is not None:
-            # all four candidates in ONE pass over the packed obs layout:
-            # one camera-table gather, one read of uvw (kernels/segsum.py)
-            from ..kernels import segsum
+        def trial(alpha):
+            R2, t2 = se3.perturb_b(R, t, alpha * dx_c)
+            X2 = X + alpha * dx_p
+            return _eval_cost(intr, k_idx, R2, t2, X2, cam_id, pt_id,
+                              uv, w_valid, huber_n)
 
-            Rs, ts_ = jax.vmap(lambda a: se3.perturb_b(R, t, a * dx_c))(alphas)
-            Xs = X[None] + alphas[:, None, None] * dx_p
-            cam19s = jnp.concatenate(
-                [segsum.build_cam_table(intr, k_idx, Rs[c], ts_[c])
-                 for c in range(4)], axis=0)
-            pp = dense.camp.shape[1]
-            x8s = jnp.zeros((32, pp), jnp.float32)
-            for c in range(4):
-                x8s = x8s.at[8 * c:8 * c + 3, :n_pts].set(Xs[c].T)
-            trial_costs = segsum.ba_cost_fused(
-                cam19s, dense.camp, uvw, x8s, huber_n,
-                tp=dense.camp.shape[0], nc=4, bases=dense.bases,
-                cam_window=cam_window, tile_p=tile_p,
-                interpret=fused_interp)
-            if ov is not None:
-                def ov_trial(alpha):
-                    R2, t2 = se3.perturb_b(R, t, alpha * dx_c)
-                    return _eval_cost(intr, k_idx, R2, t2,
-                                      X + alpha * dx_p, ov[0], ov[1],
-                                      ov[2], ov[3], huber_n)
-
-                trial_costs = trial_costs + jax.vmap(ov_trial)(alphas)
-        else:
-            def trial(alpha):
-                R2, t2 = se3.perturb_b(R, t, alpha * dx_c)
-                X2 = X + alpha * dx_p
-                return _eval_cost(intr, k_idx, R2, t2, X2, cam_id, pt_id,
-                                  uv, w_valid, huber_n)
-
-            trial_costs = jax.vmap(trial)(alphas)
+        trial_costs = jax.vmap(trial)(alphas)
         best = jnp.argmin(trial_costs)
         alpha = alphas[best]
         new_cost = trial_costs[best]

@@ -6,8 +6,8 @@ minimal sample size is what makes RANSAC survive low inlier ratios: at
 inlier ratio w the per-hypothesis success probability is w^3 for P3P vs
 w^6 for the 6-point DLT (``pnp.dlt_pnp_minimal``), a 37x gap at w=0.3.
 
-TPU design: the textbook P3P implementations are branchy (real-root
-counting, per-root early exits).  Here everything is fixed-shape VPU work:
+Design: the textbook P3P implementations are branchy (real-root
+counting, per-root early exits).  Here everything is fixed-shape elementwise work:
 
 - Grunert's quartic coefficients (Haralick et al. 1994 review) are computed
   per sample in f32;
@@ -39,7 +39,7 @@ _EPS = 1e-12
 
 
 # ---------------------------------------------------------------------------
-# Manual complex arithmetic over (re, im) pairs — TPU-portable real ops only.
+# Manual complex arithmetic over (re, im) pairs — real ops only.
 # ---------------------------------------------------------------------------
 
 
@@ -194,7 +194,7 @@ def p3p_minimal(xn: jax.Array, X: jax.Array):
 
     # Newton polish of the depths on the full law-of-cosines system — removes
     # the f32 closed-form error (quadratic convergence; ~machine precision in
-    # 3 iterations).  Tiny 3x3 solves, all VPU work.
+    # 3 iterations).  Tiny 3x3 solves, all elementwise.
     def polish(_, s):
         s1_, s2_, s3_ = s[:, 0], s[:, 1], s[:, 2]
         g = jnp.stack([

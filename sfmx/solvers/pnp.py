@@ -3,11 +3,11 @@
 Capability parity: OpenCV's ``solvePnPRansac`` (P3P/EPnP hypotheses + LM
 refine) used by the reference's localizer and OpenMVG's resection step.
 
-TPU design: the minimal solver is a 6-point DLT — one 12x12 symmetric
+Design: the minimal solver is a 6-point DLT — one 12x12 symmetric
 eigenproblem per hypothesis — chosen over P3P because it is branch-free and
 vmaps to thousands of RANSAC hypotheses with no quartic root-finding; the
 larger sample size is paid for with hypothesis count, which is nearly free
-on the MXU/VPU.  Refinement is fixed-iteration Gauss-Newton on the masked
+on an accelerator.  Refinement is fixed-iteration Gauss-Newton on the masked
 inlier set (6x6 normal equations).
 """
 from __future__ import annotations

@@ -1,7 +1,7 @@
 """Batched-hypothesis RANSAC: all minimal samples drawn and scored at once.
 
 Capability parity: OpenMVG's ACRANSAC / OpenCV's RANSAC loops, which iterate
-sequentially with data-dependent early exit.  TPU design (SURVEY.md §7.4):
+sequentially with data-dependent early exit.  Design (SURVEY.md §7.4):
 draw a static number K of minimal samples up front, vmap the minimal solver
 over all K, score all hypotheses against all data in one (K,N) pass, argmax.
 No data-dependent trip counts, no host round-trips; K replaces the adaptive

@@ -1,13 +1,13 @@
 """Block-sparse normal equations + Schur complement for bundle adjustment.
 
 Capability parity: Ceres' SPARSE_SCHUR / ITERATIVE_SCHUR path (the reference's
-BA backend via OpenMVG, SURVEY.md §3.4).  TPU design: the scene's observation
+BA backend via OpenMVG, SURVEY.md §3.4).  Design: the scene's observation
 table IS the sparse structure — Jacobian blocks live per-observation in flat
 (O, 2, 6) / (O, 2, 3) arrays, and every assembly step is a
 ``segment_sum`` over camera or point ids.  No sparse matrices, no indices
 into CSR structure, no host graph building: everything is dense gathers,
-batched 3x3/6x6 linear algebra, and segment reductions — all MXU/VPU native
-and shardable over the observation axis.
+batched 3x3/6x6 linear algebra, and segment reductions — all shardable over
+the observation axis.
 
 Layout:
   cams:    flattened camera params updated via se3 left-perturbation, 6/cam
@@ -52,17 +52,16 @@ def assemble(Jc, Jp, r, w, cam_id, pt_id, n_cams: int, n_pts: int,
       r:  (O,2) residuals.
       w:  (O,) weights (0 for invalid; robust-loss weights otherwise).
       pt_sorted: static flag — the obs table is sorted by ``pt_id``.  The
-        point-side segment reductions then lower to a fast sorted-scatter
-        (measured 52x faster than random-order scatter-add on TPU for the
-        (O,3,3) V assembly).  Solvers sort once per solve; the obs order
-        does not affect any result.
+        point-side segment reductions then lower to a sorted scatter.
+        Solvers sort once per solve; the obs order does not affect any
+        result.
       pt_rows/cam_rows: optional ``SegmentRows`` tables (built once per
-        solve) — replaces every segment reduction with gather + dense sum,
-        the fastest path on TPU (scatter-free).
+        solve) — replaces every segment reduction with gather + dense sum
+        (scatter-free).
     """
     ws = w[:, None, None]
     Jc_w = Jc * ws
-    # Per-observation outer products (batched small matmuls -> MXU).
+    # Per-observation outer products (batched small matmuls).
     U_o = jnp.einsum("oik,oil->okl", Jc_w, Jc)          # (O,6,6)
     V_o = jnp.einsum("oik,oil->okl", Jp * ws, Jp)        # (O,3,3)
     W_o = jnp.einsum("oik,oil->okl", Jc_w, Jp)           # (O,6,3)
@@ -102,19 +101,17 @@ def _damp(M: jax.Array, lam: jax.Array) -> jax.Array:
 def _inv_spd(M: jax.Array, eps: float = 1e-8) -> jax.Array:
     """Batched SPD inverse with Tikhonov floor (3x3 / 6x6 blocks).
 
-    3x3 blocks use the closed-form adjugate (pure mul/add — an order of
-    magnitude faster than batched LU for the (P,3,3) V inversion on TPU);
-    larger blocks fall back to ``jnp.linalg.inv``.
+    3x3 blocks use the closed-form adjugate (pure mul/add instead of a
+    batched LU for the (P,3,3) V inversion); larger blocks fall back to
+    ``jnp.linalg.inv``.
     """
     k = M.shape[-1]
     if k == 6:
         return _inv_spd6(M, eps)
     if k != 3:
         return jnp.linalg.inv(M + eps * jnp.eye(k, dtype=M.dtype))
-    # Component-wise adjugate over (...,) planes: ops on arrays whose minor
-    # dims are the BATCH axis, never the 3-vectors (cross/stack on minor-3
-    # arrays lower to scalar kLoop fusions on TPU — measured 12 ms for a
-    # (20000,3,3) batch vs ~0.5 ms this way).
+    # Component-wise adjugate over (...,) planes: elementwise ops over the
+    # batch axis, never cross/stack on minor-3 arrays.
     a, b_, c = M[..., 0, 0] + eps, M[..., 0, 1], M[..., 0, 2]
     d, e, f = M[..., 1, 0], M[..., 1, 1] + eps, M[..., 1, 2]
     g, h, i = M[..., 2, 0], M[..., 2, 1], M[..., 2, 2] + eps
@@ -142,10 +139,8 @@ def _inv_spd6(M: jax.Array, eps: float = 1e-8) -> jax.Array:
 
     inv([[A,B],[Bt,D]]) = [[Ai + Ai B Si Bt Ai, -Ai B Si], [-Si Bt Ai, Si]]
     with S = D - Bt Ai B.  Both 3x3 inversions use the closed-form adjugate
-    (``_inv_spd``); the block products are (.,3,3) einsums.  Measured 20x
-    faster than ``jnp.linalg.inv`` on a (512,6,6) batch on TPU (2.43 ms ->
-    ~0.1 ms), which matters because the PCG preconditioner rebuilds it every
-    LM iteration."""
+    (``_inv_spd``); the block products are (.,3,3) einsums.  The PCG
+    preconditioner rebuilds it every LM iteration."""
     A = M[..., :3, :3]
     B = M[..., :3, 3:]
     Bt = M[..., 3:, :3]
@@ -165,8 +160,7 @@ def _inv_spd6(M: jax.Array, eps: float = 1e-8) -> jax.Array:
 
 
 # ---------------------------------------------------------------------------
-# Padded-CSR segment reduction: scatter-free (gathers are fast on TPU,
-# scatter-adds are not — measured 6-30x per reduction at BA scales)
+# Padded-CSR segment reduction: scatter-free (gather + dense sum)
 # ---------------------------------------------------------------------------
 
 class SegmentRows(NamedTuple):
@@ -210,9 +204,8 @@ def rows_sum(x: jax.Array, sr: SegmentRows) -> jax.Array:
 class TrackBlocks(NamedTuple):
     """Track-blocked (dense-padded per-point) view of the coupling blocks.
 
-    The CG matvec over the raw obs table is bound by NARROW gathers/scatters
-    ((O,3)/(O,6) rows waste ~97% of each TPU memory transaction).  This view
-    pregathers Wc into a dense (P,Tp,6,3) tensor ONCE per LM iteration
+    The CG matvec over the raw obs table is bound by narrow gathers/scatters
+    of (O,3)/(O,6) rows.  This view pregathers Wc into a dense (P,Tp,6,3) tensor ONCE per LM iteration
     (hoisted out of the CG loop by XLA's while-loop invariant code motion),
     so each CG iteration is wide dense reads + batched einsums + one padded
     camera-side reduction."""
@@ -510,12 +503,10 @@ def pcg_k(sk: SchurSystemK, iters: int = 30, fixed_cam_mask=None,
 # ---------------------------------------------------------------------------
 # PLANES pipeline: all block algebra over 2D (axis, k) arrays
 # ---------------------------------------------------------------------------
-# The (O,2,6)/(O,6,3)/(P,3,3) block arrays above tile their two small minor
-# dims to (8,128)-shaped TPU tiles — 10-21x physical memory inflation
-# (f32[200000,2,6]{2,1,0:T(2,128)} occupies 204MB, not 9.6MB).  This
-# pipeline keeps every per-observation / per-point quantity as a 2D array
-# with the LARGE axis on lanes and does the 6x6/6x3/3x3 block algebra as
-# explicit component FMAs — ~4x end-to-end LM speedup at config-3 scale.
+# The (O,2,6)/(O,6,3)/(P,3,3) block arrays above have two small minor dims.
+# This pipeline keeps every per-observation / per-point quantity as a 2D
+# array with the large axis leading and does the 6x6/6x3/3x3 block algebra
+# as explicit component FMAs.
 
 class NormalBlocksP(NamedTuple):
     U: jax.Array        # (C,6,6)  (C is small; 3D is fine here)
@@ -704,256 +695,4 @@ def pcg_planes(sys: SchurSystemP, iters: int = 30, fixed_cam_mask=None,
         return (x2, r2, z2, z2 + beta * p)
 
     x, r, _, _ = jax.lax.fori_loop(0, iters, body, (x0, r0, z0, z0))
-    return x, jnp.sqrt(jnp.sum(r * r))
-
-
-# ---------------------------------------------------------------------------
-# DENSE point-major pipeline: the fused Pallas matvec (kernels/segsum.py)
-# ---------------------------------------------------------------------------
-# The planes matvec above still pays six narrow gather/scatter passes per CG
-# iteration, which this chip serves at 1-13 GB/s (measured; BASELINE.md
-# round-3 table).  Here the per-obs W blocks are re-packed ONCE per LM
-# iteration into a (tp*18, Pp) point-major dense array and the whole cross
-# term runs as one Pallas kernel call: dense W streams, in-VMEM V^{-1}, MXU
-# one-hot matmuls for the camera gather/scatter.  The same kernel (via its
-# point-side bias input) computes the Schur rhs and the point
-# back-substitution, so the entire reduced-system phase is scatter-free.
-# Measured at config-3 scale: 12.75 -> 0.22 ms per CG iteration.
-
-
-class SchurSystemD(NamedTuple):
-    """Reduced system in the dense point-major layout (kernel-ready).
-
-    ov_*: OVERFLOW observations — slots >= tp of long tracks that did not
-    fit the dense layout.  They ride the narrow planes ops (few, so the
-    1-13 GB/s gather/scatter cost is negligible) and are chained EXACTLY
-    into the kernel: their W^T x enters through the kernel's point-side
-    bias, and their W vy scatter adds to the kernel's camera output.  The
-    per-point V blocks in vinv16 are the damped inverses of the COMBINED
-    (dense + overflow) V, so the hybrid solve equals the unsplit solve.
-    """
-
-    Wp: jax.Array        # (tp*18, Pp) point-major W blocks
-    camp: jax.Array      # (tp, Pp) camera of each slot
-    vinv16: jax.Array    # (16, Pp) rows 0-8 = damped V^{-1}
-    bp8: jax.Array       # (8, Pp) rows 0-2 = b_p
-    Ud: jax.Array        # (C,6,6)
-    b_red: jax.Array     # (C,6)
-    bases: jax.Array     # (Pp//tile_p,) per-tile camera-window bases
-    ov_W18: jax.Array | None = None   # (Ov,18) overflow W blocks (pad: 0)
-    ov_cam: jax.Array | None = None   # (Ov,) camera ids (pad: clipped valid)
-    ov_pt: jax.Array | None = None    # (Ov,) point ids, ascending
-
-    @property
-    def n_cams(self) -> int:
-        return self.Ud.shape[0]
-
-
-def _dense_flags(use_kernel, interpret):
-    if use_kernel is None:
-        use_kernel = jax.default_backend() == "tpu"
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
-    return use_kernel, interpret
-
-
-def _cross(sysd: SchurSystemD, x8, bias3, tile_p, use_kernel, interpret,
-           cam_window=None):
-    from ..kernels import segsum
-
-    pp = sysd.camp.shape[1]
-    if sysd.ov_W18 is not None:
-        # overflow phase 1: y_ov = W_ov^T x[cam_ov], chained into the
-        # kernel's point-side bias (exact: the kernel applies the combined
-        # V^{-1} to dense + overflow y)
-        xg = x8[:6].T[sysd.ov_cam]                        # (Ov,6)
-        y_ov = _W_t_x(sysd.ov_W18, xg)                    # (Ov,3)
-        yp = jax.ops.segment_sum(y_ov, sysd.ov_pt, num_segments=pp,
-                                 indices_are_sorted=True)  # (Pp,3)
-        if bias3 is None:
-            bias3 = jnp.zeros((8, pp), jnp.float32)
-        bias3 = bias3.at[:3].add(yp.T)
-    if use_kernel:
-        z8, vy8 = segsum.schur_cross_matvec(
-            sysd.Wp, sysd.camp, sysd.vinv16, x8, bias3,
-            tp=sysd.camp.shape[0], tile_p=tile_p, bases=sysd.bases,
-            cam_window=cam_window, interpret=interpret)
-    else:
-        z8, vy8 = segsum.schur_cross_matvec_ref(
-            sysd.Wp, sysd.camp, sysd.vinv16, x8, bias3)
-    if sysd.ov_W18 is not None:
-        # overflow phase 2: z[cam_ov] += W_ov vy[pt_ov]
-        vy_ov = vy8[:3].T[sysd.ov_pt]                     # (Ov,3)
-        z_ov = _W_x(sysd.ov_W18, vy_ov)                   # (Ov,6)
-        zc = jax.ops.segment_sum(z_ov, sysd.ov_cam,
-                                 num_segments=x8.shape[1])
-        z8 = z8.at[:6].add(zc.T)
-    return z8, vy8
-
-
-def _pad_x8(x, cp):
-    return jnp.zeros((8, cp), jnp.float32).at[:6, :x.shape[0]].set(x.T)
-
-
-def reduce_system_dense(nb: NormalBlocksP, dense, lam, *,
-                        tile_p: int = 512, use_kernel: bool | None = None,
-                        interpret: bool | None = None,
-                        cam_window: int | None = None) -> SchurSystemD:
-    """Damp + Schur-reduce into the kernel-ready dense layout.
-
-    ``dense`` is a ``kernels.segsum.DenseObs`` built once per solve from
-    the SAME pt-sorted obs order as ``nb``.  ``cam_window`` is the static
-    per-tile one-hot width matching ``dense.bases``
-    (``segsum.compute_cam_window``).
-    """
-    from ..kernels import segsum
-
-    use_kernel, interpret = _dense_flags(use_kernel, interpret)
-    C = nb.U.shape[0]
-    P = nb.V9.shape[0]
-    cp = -(-C // 128) * 128
-    tp, pp = dense.camp.shape
-
-    Wp = segsum.pack_rows(dense, nb.W18)                  # (tp*18, Pp)
-    vinv16 = jnp.zeros((16, pp), jnp.float32).at[:9, :P].set(
-        _damp_inv3_planes(nb.V9, lam).T)
-    bp8 = jnp.zeros((8, pp), jnp.float32).at[:3, :P].set(nb.b_p.T)
-    Ud = _damp(nb.U, lam)
-    sysd = SchurSystemD(Wp, dense.camp, vinv16, bp8, Ud,
-                        b_red=jnp.zeros((C, 6), jnp.float32),
-                        bases=dense.bases)
-    # b_red = b_c - scatter_cam(W V^{-1} b_p): the kernel with x=0
-    z8, _ = _cross(sysd, jnp.zeros((8, cp), jnp.float32), bp8,
-                   tile_p, use_kernel, interpret, cam_window)
-    return sysd._replace(b_red=nb.b_c - z8[:6, :C].T)
-
-
-def _damp_inv3_rows(V9r: jax.Array, lam, eps: float = 1e-8) -> jax.Array:
-    """Rows-layout damped 3x3 inverse: (9, Pp) -> (9, Pp) (planes analog of
-    ``_damp_inv3_planes``, no (P,9) lane-padded transposes)."""
-    a = V9r[0] * (1.0 + lam) + 1e-10 + eps
-    b, c, d = V9r[1], V9r[2], V9r[3]
-    e = V9r[4] * (1.0 + lam) + 1e-10 + eps
-    f, g, h = V9r[5], V9r[6], V9r[7]
-    i = V9r[8] * (1.0 + lam) + 1e-10 + eps
-    A = e * i - f * h
-    B = c * h - b * i
-    Cc = b * f - c * e
-    D = f * g - d * i
-    E = a * i - c * g
-    F = c * d - a * f
-    G = d * h - e * g
-    H = b * g - a * h
-    I = a * e - b * d
-    det = a * A + b * D + c * G
-    det = jnp.where(jnp.abs(det) < 1e-30, 1e-30, det)
-    return jnp.stack([A, B, Cc, D, E, F, G, H, I], axis=0) / det[None, :]
-
-
-def reduce_system_fused(intr, k_idx, R, t, X, dense, uvw, lam, delta, *,
-                        tile_p: int = 512, use_kernel: bool | None = None,
-                        interpret: bool | None = None,
-                        cam_window: int | None = None,
-                        ov_blocks: NormalBlocksP | None = None,
-                        ov_cost=None):
-    """One fused-kernel pass: residuals + Jacobians + normal blocks +
-    Schur reduction, all in the dense layout (kernels/segsum.ba_assemble_
-    fused).  Returns (SchurSystemD, cost) — cost is the robust cost at the
-    current parameters, a free by-product of the assembly.
-
-    ``uvw`` is the once-per-solve packed (tp*3, Pp) [u, v, w_valid] table.
-
-    ov_blocks/ov_cost: planes-assembled normal blocks (and robust cost) of
-    the OVERFLOW observations — slots >= tp of tracks longer than the dense
-    layout.  Their U/b_c/V/b_p fold into the fused system's blocks and
-    their W blocks ride SchurSystemD.ov_* through every matvec, so the
-    hybrid solve is exactly the unsplit solve.
-    """
-    from ..kernels import segsum
-
-    use_kernel, interpret = _dense_flags(use_kernel, interpret)
-    C = R.shape[0]
-    P = X.shape[0]
-    cp = -(-C // 128) * 128
-    tp, pp = dense.camp.shape
-    cam19 = segsum.build_cam_table(intr, k_idx, R, t)
-    x8 = jnp.zeros((8, pp), jnp.float32).at[:3, :P].set(X.T)
-    u96, v16, Wp = segsum.ba_assemble_fused(
-        cam19, dense.camp, uvw, x8, delta, tp=tp, tile_p=tile_p,
-        bases=dense.bases, cam_window=cam_window, interpret=interpret)
-    ub = u96[:48] + u96[48:]                              # hi+lo halves
-    U = ub[:36, :C].T.reshape(C, 6, 6)
-    b_c = ub[36:42, :C].T
-    cost = jnp.sum(v16[12])
-    v9r = v16[:9]
-    bpr = v16[9:12]
-    ov = (None, None, None)
-    if ov_blocks is not None:
-        U = U + ov_blocks.U
-        b_c = b_c + ov_blocks.b_c
-        cost = cost + ov_cost
-        v9r = v9r.at[:, :P].add(ov_blocks.V9.T)
-        bpr = bpr.at[:, :P].add(ov_blocks.b_p.T)
-        ov = (ov_blocks.W18, ov_blocks.cam_id, ov_blocks.pt_id)
-    vinv16 = jnp.zeros((16, pp), jnp.float32).at[:9].set(
-        _damp_inv3_rows(v9r, lam))
-    bp8 = jnp.zeros((8, pp), jnp.float32).at[:3].set(bpr)
-    Ud = _damp(U, lam)
-    sysd = SchurSystemD(Wp, dense.camp, vinv16, bp8, Ud,
-                        b_red=jnp.zeros((C, 6), jnp.float32),
-                        bases=dense.bases,
-                        ov_W18=ov[0], ov_cam=ov[1], ov_pt=ov[2])
-    z8, _ = _cross(sysd, jnp.zeros((8, cp), jnp.float32), bp8,
-                   tile_p, use_kernel, interpret, cam_window)
-    return sysd._replace(b_red=b_c - z8[:6, :C].T), cost
-
-
-def solve_points_dense(sysd: SchurSystemD, dx_c: jax.Array, *,
-                       tile_p: int = 512, use_kernel: bool | None = None,
-                       interpret: bool | None = None,
-                       cam_window: int | None = None) -> jax.Array:
-    """dx_p = V^{-1}(b_p - W^T dx_c): the kernel with bias = -b_p."""
-    use_kernel, interpret = _dense_flags(use_kernel, interpret)
-    cp = -(-sysd.n_cams // 128) * 128
-    _, vy8 = _cross(sysd, _pad_x8(dx_c, cp), -sysd.bp8,
-                    tile_p, use_kernel, interpret, cam_window)
-    return -vy8[:3, :].T   # (Pp,3); caller slices to P
-
-
-def pcg_dense(sysd: SchurSystemD, iters: int = 30, fixed_cam_mask=None,
-              tile_p: int = 512, use_kernel: bool | None = None,
-              interpret: bool | None = None, cam_window: int | None = None):
-    """Block-Jacobi PCG with the fused dense-layout Schur matvec."""
-    use_kernel, interpret = _dense_flags(use_kernel, interpret)
-    C = sysd.n_cams
-    cp = -(-C // 128) * 128
-    Minv = _inv_spd(sysd.Ud)
-
-    def matvec(x):
-        z8, _ = _cross(sysd, _pad_x8(x, cp), None, tile_p, use_kernel,
-                       interpret, cam_window)
-        Ux = jnp.einsum("cij,cj->ci", sysd.Ud, x)
-        return Ux - z8[:6, :C].T
-
-    def proj(x):
-        if fixed_cam_mask is None:
-            return x
-        return jnp.where(fixed_cam_mask[:, None], 0.0, x)
-
-    b = proj(sysd.b_red)
-    x0 = jnp.zeros_like(b)
-    z0 = proj(jnp.einsum("cij,cj->ci", Minv, b))
-
-    def body(_, carry):
-        x, r, z, p = carry
-        Sp = proj(matvec(p))
-        rz = jnp.sum(r * z)
-        alpha = rz / jnp.maximum(jnp.sum(p * Sp), 1e-20)
-        x2 = x + alpha * p
-        r2 = r - alpha * Sp
-        z2 = proj(jnp.einsum("cij,cj->ci", Minv, r2))
-        beta = jnp.sum(r2 * z2) / jnp.maximum(rz, 1e-20)
-        return (x2, r2, z2, z2 + beta * p)
-
-    x, r, _, _ = jax.lax.fori_loop(0, iters, body, (x0, b, z0, z0))
     return x, jnp.sqrt(jnp.sum(r * r))

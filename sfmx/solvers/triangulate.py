@@ -1,11 +1,11 @@
 """DLT triangulation: two-view and masked N-view, fully vmapped.
 
 Capability parity: OpenMVG's ``TriangulateDLT`` / N-view triangulation used
-inside the incremental engine.  TPU design: one fused path that triangulates
+inside the incremental engine.  Design: one fused path that triangulates
 a whole batch of tracks at once — each track has up to ``V`` observing views
 (static capacity, mask for real ones); the per-track 4x4 normal matrix is
 built by a masked sum over views and solved by symmetric eigendecomposition
-(``eigh`` is TPU-supported; general SVD of tall matrices is avoided).
+(``eigh``; general SVD of tall matrices is avoided).
 """
 from __future__ import annotations
 

@@ -195,3 +195,31 @@ def test_planes_pipeline_parity():
     cA, cB = np.asarray(outA[3]), np.asarray(outB[3])
     assert cB[-1] <= cA[0], "planes path failed to reduce cost"
     np.testing.assert_allclose(cA[-1], cB[-1], rtol=0.05)
+
+
+def test_ba_solve_planes_einsum_parity_long_tracks():
+    """Orbit scene whose tracks span every camera (the long-track scene the
+    removed dense-layout path was tested on): the planes formulation with a
+    track bound converges to the same optimum as the einsum formulation."""
+    sc = make_scene(n_cams=8, n_points=120, noise_px=0.3)
+    cam_id, pt_id, uv, w = build_obs_table(sc)
+    lens = np.bincount(np.asarray(pt_id), minlength=120)
+    assert lens.max() > 4  # tracks really are long
+    intr = jnp.asarray(sc.intrinsics, jnp.float32)[None]
+    k_idx = jnp.zeros(8, jnp.int32)
+    fixed = jnp.zeros(8, bool).at[0].set(True)
+    rng = np.random.default_rng(2)
+    R0 = jnp.asarray(sc.Rs, jnp.float32)
+    t0 = jnp.asarray(sc.ts + 0.03 * rng.standard_normal((8, 3)), jnp.float32)
+    X0 = jnp.asarray(sc.points + 0.03 * rng.standard_normal((120, 3)),
+                     jnp.float32)
+    args = (intr, k_idx, R0, t0, X0, cam_id, pt_id, jnp.asarray(uv),
+            jnp.asarray(w), fixed)
+    tp = 1 << int(lens.max() - 1).bit_length()
+    tc = 1 << int(np.bincount(np.asarray(cam_id)).max() - 1).bit_length()
+    _, _, _, costs_e = lm.ba_solve(*args, iters=8, cg_iters=25)
+    _, _, _, costs_p = lm.ba_solve(*args, iters=8, cg_iters=25, tp_cap=tp,
+                                   tc_cap=tc)
+    assert float(costs_p[-1]) < float(costs_p[0]) * 0.1
+    np.testing.assert_allclose(float(costs_p[-1]), float(costs_e[-1]),
+                               rtol=0.02)

@@ -119,7 +119,7 @@ def test_fed_schedule_covers_time():
 
 
 def test_upright_descriptor_translation_invariance():
-    """Upright (pallas-oracle) path: descriptors survive pure translation."""
+    """Upright path: descriptors survive pure translation."""
     rng = np.random.default_rng(9)
     img = make_texture(rng)
     img2 = np.roll(img, (5, 9), axis=(0, 1))
@@ -140,62 +140,65 @@ def test_upright_descriptor_translation_invariance():
     assert (err < 2.0).mean() > 0.9
 
 
-def test_pallas_describe_parity_interpret():
-    """Pallas kernel (interpret mode) == jnp oracle."""
-    from sfmx.kernels import pallas_describe as pd
-
+def test_upright_describer_samples_bilinear_patch():
+    """describe_upright == a direct numpy bilinear resample + cell means."""
     rng = np.random.default_rng(3)
-    B, L, HH, WW, K = 1, 3, 160, 160, 16
-    levels = jnp.asarray(rng.random((B, L, HH, WW)), jnp.float32)
-    uv = jnp.asarray(rng.uniform(40, 120, (B, K, 2)), jnp.float32)
-    lvl = jnp.asarray(rng.integers(0, L, (B, K)), jnp.int32)
-    sigma = jnp.asarray(rng.choice([2.0, 3.0], (B, K)), jnp.float32)
-    mask = jnp.ones((B, K), bool)
-    ref = pd.describe_upright_reference(levels, uv, lvl, sigma, mask)
-    out = pd.describe_upright(levels, uv, lvl, sigma, mask, interpret=True)
-    np.testing.assert_allclose(np.asarray(out), np.asarray(ref), atol=2e-6)
+    B, L, HH, WW, K = 1, 3, 160, 160, 8
+    levels = rng.random((B, L, HH, WW)).astype(np.float32)
+    uv = rng.uniform(40, 120, (B, K, 2)).astype(np.float32)
+    lvl = rng.integers(0, L, (B, K)).astype(np.int32)
+    sigma = rng.choice([2.0, 3.0], (B, K)).astype(np.float32)
+    out = np.asarray(features.describe_upright(
+        jnp.asarray(levels), jnp.asarray(uv), jnp.asarray(lvl),
+        jnp.asarray(sigma), jnp.ones((B, K), bool)))
+    P_ = features._PATCH
+    for k in range(K):
+        img = np.zeros((256, 256), np.float32)   # zero-extended scale space
+        img[:HH, :WW] = levels[0, lvl[0, k]]
+        off = (np.arange(P_) - (P_ - 1) / 2) * 20.0 * sigma[0, k] / (P_ - 1)
+        gx, gy = np.meshgrid(uv[0, k, 0] + off, uv[0, k, 1] + off)
+        x = np.clip(gx, 0, 255 - 0.001)
+        y = np.clip(gy, 0, 255 - 0.001)
+        x0, y0 = np.floor(x).astype(int), np.floor(y).astype(int)
+        fx, fy = x - x0, y - y0
+        patch = (img[y0, x0] * (1 - fx) * (1 - fy) + img[y0, x0 + 1] * fx * (1 - fy)
+                 + img[y0 + 1, x0] * (1 - fx) * fy + img[y0 + 1, x0 + 1] * fx * fy)
+        cells = []
+        for g in (2, 3, 4):
+            cs = P_ // g
+            for ch in (patch, np.gradient(patch, axis=1),
+                       np.gradient(patch, axis=0)):
+                cells.append(ch.reshape(g, cs, g, cs).mean(axis=(1, 3)).ravel())
+        np.testing.assert_allclose(out[0, k], np.concatenate(cells), atol=2e-5)
 
 
-def test_pallas_scale_space_misaligned_width():
-    """Widths that are not lane-tile multiples (e.g. 320) go through the
-    replicate-pad path; interior values still match the jnp oracle (borders
-    differ by design: replicate-pad vs the oracle's circular wrap)."""
-    from sfmx.kernels import pallas_scale_space as pss
-
-    rng = np.random.default_rng(5)
-    imgs = jnp.asarray(rng.random((1, 96, 160)), jnp.float32)
-    cfg = features.ScaleSpaceConfig(sigma_levels=(2, 3))
-    lv_ref = features.build_scale_space(imgs, cfg)
-    resp_ref = features.hessian_response(lv_ref, cfg)
-    # force the pad path (interpret=True normally skips it)
-    imgs_p = jnp.pad(imgs, ((0, 0), (0, 0), (0, 32)), mode="edge")
-    lv, resp = pss.build_scale_space_and_response(imgs_p, cfg,
-                                                  interpret=True)
-    lv, resp = lv[..., :160], resp[..., :160]
-    assert lv.shape == lv_ref.shape and resp.shape == resp_ref.shape
-    # atol 5e-3: the ORACLE's circular wrap leaks the opposite border into
-    # the diffusion stencil and ~30 FED steps spread it through the
-    # interior; the replicate-pad kernel is the better-behaved of the two.
-    b = 32
-    np.testing.assert_allclose(np.asarray(lv)[..., 8:-8, b:-b],
-                               np.asarray(lv_ref)[..., 8:-8, b:-b],
-                               atol=5e-3)
-    assert np.isfinite(np.asarray(resp)).all()
-
-
-def test_pallas_scale_space_parity_interpret():
-    """Fused diffusion/response kernels (interpret) == jnp oracles."""
-    from sfmx.kernels import pallas_scale_space as pss
-
+def test_finalize_float_unit_norm_and_masked():
     rng = np.random.default_rng(4)
-    imgs = jnp.asarray(rng.random((2, 96, 128)), jnp.float32)
-    cfg = features.ScaleSpaceConfig(sigma_levels=(2, 3, 4))
-    lv_ref = features.build_scale_space(imgs, cfg)
-    resp_ref = features.hessian_response(lv_ref, cfg)
-    lv, resp = pss.build_scale_space_and_response(imgs, cfg, interpret=True)
-    # atol 1e-5: sequential-accumulation Scharr reassociates f32 sums
-    np.testing.assert_allclose(np.asarray(lv), np.asarray(lv_ref), atol=1e-5)
-    np.testing.assert_allclose(np.asarray(resp), np.asarray(resp_ref), atol=1e-5)
+    raw = jnp.asarray(rng.standard_normal((2, 6, features.N_CELLS * 3)),
+                      jnp.float32)
+    mask = jnp.asarray([[True] * 5 + [False], [True] * 6])
+    f = np.asarray(features.finalize_float(raw, mask))
+    assert f.shape == (2, 6, features.N_FLOAT_DIM)
+    n = np.linalg.norm(f, axis=-1)
+    np.testing.assert_allclose(n[np.asarray(mask)], 1.0, atol=1e-5)
+    assert np.all(f[0, 5] == 0.0)
+    # per-(grid,channel) groups are zero-mean before the global norm
+    np.testing.assert_allclose(f[..., :4].sum(-1)[np.asarray(mask)], 0.0,
+                               atol=1e-5)
+
+
+def test_finalize_bits_pairwise_comparisons():
+    rng = np.random.default_rng(6)
+    raw = jnp.asarray(rng.standard_normal((1, 3, features.N_CELLS * 3)),
+                      jnp.float32)
+    bits = np.asarray(features.finalize_bits(raw, jnp.ones((1, 3), bool)))
+    assert bits.shape == (1, 3, features.N_WORDS) and bits.dtype == np.uint32
+    # bit 0 compares the first two cells of the 2x2 mean group
+    r = np.asarray(raw)
+    np.testing.assert_array_equal(bits[0, :, 0] & 1,
+                                  (r[0, :, 0] > r[0, :, 1]).astype(np.uint32))
+    unpacked = (bits[..., None] >> np.arange(32, dtype=np.uint32)) & 1
+    assert unpacked.reshape(1, 3, -1)[..., features.N_BITS:].sum() == 0
 
 
 def test_multi_octave_scale_invariance():

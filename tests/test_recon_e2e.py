@@ -38,26 +38,6 @@ def test_all_cameras_registered(pipeline_result):
     assert stats["n_points"] > 150
 
 
-def test_reconstruct_dense_ba_parity(pipeline_result):
-    """Forcing the fused dense-layout BA (interpret mode on CPU) registers
-    the same cameras and matches the default path's trajectory."""
-    sc, scene, stats, extras = pipeline_result
-    (uv, mask, tt) = extras[0], extras[2], extras[4]
-    C = uv.shape[0]
-    scene2, stats2 = reconstruct(
-        uv, mask, tt, sc.intrinsics[None].astype(np.float32),
-        np.zeros(C, np.int32),
-        ReconConfig(ba_every=3, dense_ba="on", dense_ba_min_obs=1),
-    )
-    assert stats2["n_registered"] == stats["n_registered"]
-    est = np.asarray(scene2.centers)
-    ref = sc.centers.astype(np.float32)
-    alive = np.asarray(scene2.cam_alive)
-    rmse, _ = umeyama.ate_rmse(jnp.asarray(est), jnp.asarray(ref),
-                               jnp.asarray(alive))
-    assert float(rmse) < 0.1, f"dense-BA ATE {float(rmse)} too high"
-
-
 def test_trajectory_ate(pipeline_result):
     sc, scene, stats, _ = pipeline_result
     est = np.asarray(scene.centers)

@@ -146,7 +146,7 @@ def test_ransac_sampling_valid_and_distinct():
 
 def test_inv_spd6_blocked_matches_lu():
     """Blocked 3x3-Schur 6x6 SPD inverse == LU inverse (PCG preconditioner
-    path; the blocked form is ~4.5x faster in-program on TPU)."""
+    path)."""
     import numpy as np
     import jax.numpy as jnp
 
